@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Bring-up check of vector_store_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the probe-scan kernels from csrc/ with nvcc, then:
+
+  0. prints the card (nvidia-smi name and power limit), the torch and CUDA
+     versions and the kernels' build time;
+  1. holds each kernel against its plain PyTorch version at serving shapes
+     (Q=256 queries, p=16 probes, bucket B=640, D=768; int8, bf16 and f32
+     banks; cosine, dot and l2; B1 at k=10 and 32, B2 also over the packed
+     int4 bank), with a tenth of the rows tombstoned and short live
+     prefixes, and times both with CUDA events;
+  2. serves an int8 IVF index over HTTP (in-process server on 127.0.0.1),
+     bulk-loads N rows of the bench corpus recipe (default 1,000,000 x 768;
+     VST_SMOKE_N lowers it for local runs) through the engine handle in
+     8,192-row batches plus 256 rows through POST .../add;
+  3. sends 512 limit-10 queries over HTTP with 64 in flight, checks
+     recall@10 >= 0.90 against an exact f32 oracle on the card, sends 8
+     limit-50 queries, checks that the HTTP path launched both kernels, and
+     times IvfIndex.search on 2,048 queries in one call.
+
+Any failed phase raises and the exit code is non-zero.  The last line is
+{"ok": true, "device": {...}}, the line before it the kernels' record.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+KS, IX = "smoke", "corpus"
+DIM = 768
+SEED = 42
+TOL = 1e-5  # absolute: f32 sums of unit-norm rows, taken in another order
+ADD_BATCH = 8192
+EXTRA_ROWS = 256
+N_HTTP, N_BATCH, IN_FLIGHT = 512, 2048, 64
+MIN_RECALL = 0.90
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# --------------------------------------------------------------------------
+# data: the bench corpus recipe (clustered gaussian, seeded PCG64)
+
+
+def make_corpus(n: int, d: int, seed: int = SEED) -> np.ndarray:
+    """n rows around n/50 gaussian centres, sigma 0.35 (bench.py recipe)."""
+    crng = np.random.default_rng([seed, 1])
+    n_clusters = max(n // 50, 16)
+    centers = crng.standard_normal((n_clusters, d), dtype=np.float32)
+    step = min(n, 1 << 17)
+    x = np.empty((n, d), dtype=np.float32)
+    for off in range(0, n, step):
+        m = min(step, n - off)
+        blk = x[off : off + m]
+        blk[:] = crng.standard_normal((m, d), dtype=np.float32)
+        blk *= 0.35
+        blk += centers[crng.integers(0, n_clusters, m)]
+    return x
+
+
+def make_queries(x: np.ndarray, q: int, seed: int = SEED) -> np.ndarray:
+    """In-distribution queries: corpus rows plus sigma-0.25 noise."""
+    rng = np.random.default_rng(seed)
+    qi = rng.choice(len(x), q, replace=False)
+    return x[qi] + 0.25 * rng.standard_normal((q, x.shape[1]), dtype=np.float32)
+
+
+def make_extra(x: np.ndarray, m: int, seed: int = SEED) -> np.ndarray:
+    rng = np.random.default_rng([seed, 2])
+    qi = rng.choice(len(x), m, replace=False)
+    return x[qi] + 0.35 * rng.standard_normal((m, x.shape[1]), dtype=np.float32)
+
+
+# --------------------------------------------------------------------------
+# phase 1: kernels against their plain versions
+
+
+def _bank(torch, dtype, K, B, D, gen, device):
+    from vector_store_tpu_torch.core.distance import normalize
+    from vector_store_tpu_torch.core.quantize import quantize_rows
+
+    rows = normalize(torch.randn((K * B, D), generator=gen, device=device))
+    if dtype == "int8":
+        codes, scales = quantize_rows(rows)
+        return codes.reshape(K, B, D), scales.reshape(K, B)
+    ones = torch.ones((K, B), device=device)
+    if dtype == "bfloat16":
+        return rows.to(torch.bfloat16).reshape(K, B, D), ones
+    return rows.reshape(K, B, D), ones
+
+
+def _compare_topk(torch, d_k, r_k, d_ref, r_ref, k):
+    """(max |d err| over finite entries, share of ids equal, positions
+    compared).  Ids are compared where the reference distance differs from
+    both neighbours by more than TOL; the reference carries k+1 entries so
+    position k-1 has a right neighbour."""
+    d_ref_k = d_ref[:, :k]
+    if not torch.equal(torch.isinf(d_k), torch.isinf(d_ref_k)):
+        raise AssertionError("INF pattern differs between kernel and plain")
+    fin = torch.isfinite(d_ref_k)
+    err = float((d_k - d_ref_k)[fin].abs().max()) if fin.any() else 0.0
+    gap = (d_ref[:, 1:] - d_ref[:, :-1]).nan_to_num(nan=float("inf"))  # inf - inf
+    sep = gap[:, :k] > TOL
+    sep[:, 1:] &= gap[:, : k - 1] > TOL
+    n_sep = int(sep.sum())
+    if n_sep == 0:
+        raise AssertionError("no separated positions to compare ids on")
+    agree = int((r_k[sep] == r_ref[:, :k][sep]).sum()) / n_sep
+    return err, agree, n_sep
+
+
+def _time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.core.distance import normalize
+    from vector_store_tpu_torch.core.quantize import pack_int4_from_int8
+    from vector_store_tpu_torch.core.topk import SENTINEL, topk_ascending_stable
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rowid = torch.arange(K * B, dtype=torch.int32, device=device).reshape(K, B)
+    dead = torch.rand((K, B), generator=gen, device=device) < 0.1
+    # every 8th bucket keeps only a short live prefix
+    prefix = torch.randint(0, B, (K,), generator=gen, device=device)
+    short = (torch.arange(K, device=device) % 8 == 0)[:, None] & (
+        torch.arange(B, device=device)[None, :] >= prefix[:, None]
+    )
+    rid = torch.where(dead | short, SENTINEL, rowid)
+    nsb = ic.live_prefix_blocks(rid != SENTINEL)
+    q = normalize(torch.randn((Q, D), generator=gen, device=device))
+    cids = torch.argsort(torch.rand((Q, K), generator=gen, device=device), dim=1)[:, :p]
+    cids = cids.to(torch.int32).contiguous()
+    # rows the kernels read: the live ones (tombstones and slots past the
+    # live prefix are skipped without touching the bank)
+    rows_read = (rid != SENTINEL).sum(dim=1)[cids.long()].sum().item()
+
+    report = {"search_fused": {"err": 0.0, "agree": 1.0}, "pool_scan": {"err": 0.0, "agree": 1.0}}
+    timing = {}
+    banks = {dt: _bank(torch, dt, K, B, D, gen, device) for dt in ("int8", "bfloat16", "float32")}
+    for dt, (vec, scl) in banks.items():
+        for space in ("cosine", "dot", "l2"):
+            for k in (10, 32):
+                d_k, r_k = ic.search_fused(vec, scl, rid, q, cids, space, k, nsb)
+                d_p, r_p = ic.search_fused_plain(vec, scl, rid, q, cids, space, k + 1, nsb)
+                torch.cuda.synchronize()
+                err, agree, n_sep = _compare_topk(torch, d_k, r_k, d_p, r_p, k)
+                log(f"  B1 {dt:8s} {space:6s} k={k:2d}: max|d err| {err:.3e}  "
+                    f"ids agree {agree:.4f} on {n_sep} separated")
+                rep = report["search_fused"]
+                rep["err"], rep["agree"] = max(rep["err"], err), min(rep["agree"], agree)
+            variants = [(vec, False)]
+            if dt == "int8":
+                variants.append((pack_int4_from_int8(vec), True))
+            for v, packed in variants:
+                pool_k = ic.pool_scan_fused(v, scl, rid, q, cids, space, packed, nsb)
+                pool_p = ic.pool_scan_plain(v, scl, rid, q, cids, space, packed, nsb)
+                torch.cuda.synchronize()
+                if not torch.equal(torch.isinf(pool_k), torch.isinf(pool_p)):
+                    raise AssertionError("B2 INF pattern differs from plain")
+                fin = torch.isfinite(pool_p)
+                err = float((pool_k - pool_p)[fin].abs().max())
+                d_p, pos_p = topk_ascending_stable(pool_p, 51)
+                d_k, pos_k = topk_ascending_stable(pool_k, 50)
+                err2, agree, n_sep = _compare_topk(torch, d_k, pos_k, d_p, pos_p, 50)
+                name = f"{dt}{'-packed' if packed else ''}"
+                log(f"  B2 {name:13s} {space:6s}: max|d err| {err:.3e}  "
+                    f"top-50 ids agree {agree:.4f} on {n_sep} separated")
+                rep = report["pool_scan"]
+                rep["err"], rep["agree"] = max(rep["err"], err, err2), min(rep["agree"], agree)
+    for name, rep in report.items():
+        if rep["err"] > TOL or rep["agree"] < 1.0:
+            raise AssertionError(f"{name}: kernel disagrees with plain: {rep}")
+
+    # serving configuration: int8 bank, cosine, k=10; turns plain/kernel/kernel/plain
+    vec, scl = banks["int8"]
+    runs = {
+        "search_fused": (
+            lambda: ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb),
+            lambda: ic.search_fused_plain(vec, scl, rid, q, cids, "cosine", 10, nsb),
+        ),
+        "pool_scan": (
+            lambda: ic.pool_scan_fused(vec, scl, rid, q, cids, "cosine", False, nsb),
+            lambda: ic.pool_scan_plain(vec, scl, rid, q, cids, "cosine", False, nsb),
+        ),
+    }
+    for name, (kern, plain) in runs.items():
+        p1 = _time_ms(torch, plain, 3)
+        k1 = _time_ms(torch, kern, 50)
+        k2 = _time_ms(torch, kern, 50)
+        p2 = _time_ms(torch, plain, 3)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        gbs = rows_read * D / (ms * 1e-3) / 1e9
+        timing[name] = (ms, plain_ms)
+        log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"({plain_ms / ms:.1f}x; {rows_read} live int8 rows read, {gbs:.1f} GB/s; "
+            f"Q={Q} p={p} B={B} D={D})")
+    del banks
+    torch.cuda.empty_cache()
+    return report, timing
+
+
+# --------------------------------------------------------------------------
+# phases 2 and 3: the service
+
+
+def _oracle(torch, corpus, extra, queries, k, device):
+    """Exact cosine top-k ids over corpus ++ extra, f32 on the device."""
+    from vector_store_tpu_torch.core.distance import normalize
+    from vector_store_tpu_torch.core.topk import topk_ascending
+
+    q = normalize(torch.as_tensor(queries, device=device))
+    best_d = torch.full((len(q), k), float("inf"), device=device)
+    best_i = torch.zeros((len(q), k), dtype=torch.long, device=device)
+    step = 1 << 17
+    for base, rows in ((0, corpus), (len(corpus), extra)):
+        for off in range(0, len(rows), step):
+            blk = normalize(torch.as_tensor(rows[off : off + step], device=device))
+            d, i = topk_ascending(1.0 - q @ blk.T, min(k, len(blk)))
+            best_d, pos = topk_ascending(torch.cat([best_d, d], 1), k)
+            best_i = torch.gather(torch.cat([best_i, i + base + off], 1), 1, pos)
+    return best_i.cpu().numpy()
+
+
+def _recall(got: list, truth: np.ndarray) -> float:
+    k = truth.shape[1]
+    return float(np.mean([len(set(g) & set(t.tolist())) / k for g, t in zip(got, truth)]))
+
+
+async def phase_service(torch, n, device="cuda"):
+    import aiohttp
+
+    from vector_store_tpu_torch import IndexId, new_index_factory, run
+    from vector_store_tpu_torch.core import ivf_cuda
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(n, DIM)
+    extra = make_extra(corpus, EXTRA_ROWS)
+    queries = make_queries(corpus, N_BATCH)
+    log(f"  corpus {n} x {DIM} generated in {time.perf_counter() - t0:.1f} s (host)")
+
+    server, engine = await run("127.0.0.1:0", new_index_factory(device=device))
+    out = {}
+    try:
+        base = f"http://{server.addr}/api/v1/indexes/{KS}/{IX}"
+        async with aiohttp.ClientSession() as http:
+            body = {"dimensions": DIM, "space": "cosine", "dtype": "int8", "kind": "ivf"}
+            async with http.put(base, json=body) as r:
+                if r.status != 200:
+                    raise AssertionError(f"PUT index: {r.status} {await r.text()}")
+            handle = await engine.get_index(IndexId.from_parts(KS, IX))
+
+            # main path from here: count kernel launches of this run only
+            for key in ivf_cuda.LAUNCHES:
+                ivf_cuda.LAUNCHES[key] = 0
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for off in range(0, n, ADD_BATCH):
+                end = min(off + ADD_BATCH, n)
+                await handle.add_or_replace_batch([((i,), corpus[i]) for i in range(off, end)])
+            for j, row in enumerate(extra):
+                payload = {"primary_key": [n + j], "embedding": row.tolist()}
+                async with http.post(base + "/add", json=payload) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"POST add: {r.status} {await r.text()}")
+            want = n + EXTRA_ROWS
+            deadline = time.perf_counter() + 900
+            while True:
+                async with http.get(base + "/count") as r:
+                    count = await r.json()
+                if count == want:
+                    break
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"count stuck at {count}, want {want}")
+                await asyncio.sleep(0.05)
+            ingest_s = time.perf_counter() - t0
+            out["ingest_vec_s"] = want / ingest_s
+            idx = handle.backend.index
+            mem = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+            log(f"  ingested {want} rows in {ingest_s:.2f} s: {out['ingest_vec_s']:.0f} vec/s; "
+                f"{idx.n_clusters} clusters x bucket {idx.state.bucket}; "
+                f"peak device memory {mem / 2**30:.3f} GiB")
+
+            # phase 3: queries over HTTP, 64 in flight
+            sem = asyncio.Semaphore(IN_FLIGHT)
+            lat = []
+
+            async def ann(vec, limit):
+                async with sem:
+                    t = time.perf_counter()
+                    payload = {"embedding": vec.tolist(), "limit": limit}
+                    async with http.post(base + "/ann", json=payload) as r:
+                        if r.status != 200:
+                            raise AssertionError(f"POST ann: {r.status} {await r.text()}")
+                        res = await r.json()
+                    lat.append(time.perf_counter() - t)
+                    return res["primary_keys"]["pk0"]
+
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(ann(v, 10) for v in queries[:N_HTTP]))
+            wall = time.perf_counter() - t0
+            lat_ms = np.asarray(lat) * 1e3
+            truth = _oracle(torch, corpus, extra, queries, 10, device)
+            out["recall_http"] = _recall(got, truth[:N_HTTP])
+            out["p50_ms"], out["p99_ms"] = (float(np.percentile(lat_ms, s)) for s in (50, 99))
+            out["http_qps"] = N_HTTP / wall
+            log(f"  HTTP ann limit=10 x {N_HTTP}, {IN_FLIGHT} in flight: recall@10 "
+                f"{out['recall_http']:.4f}; p50 {out['p50_ms']:.2f} ms  p99 "
+                f"{out['p99_ms']:.2f} ms; {out['http_qps']:.1f} req/s")
+            if out["recall_http"] < MIN_RECALL:
+                raise AssertionError(f"recall@10 {out['recall_http']} < {MIN_RECALL}")
+            fused_http = ivf_cuda.LAUNCHES["search_fused"]
+
+            big = await asyncio.gather(*(ann(v, 50) for v in queries[:8]))
+            if any(len(b) != 50 for b in big):
+                raise AssertionError("limit=50 queries returned short lists")
+            out["launches"] = dict(ivf_cuda.LAUNCHES)
+            log(f"  HTTP ann limit=50 x 8: ok; launches on the HTTP path: {out['launches']}")
+            if device == "cuda" and not (fused_http > 0 and out["launches"]["pool_scan"] > 0):
+                raise AssertionError(f"a kernel was not launched: {out['launches']}")
+
+            # batch: IvfIndex.search on 2,048 queries in one call
+            idx.search(queries, 10)
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                _, ids = idx.search(queries, 10)
+                times.append(time.perf_counter() - t)
+            out["batch_qps"] = N_BATCH / float(np.median(times))
+            out["recall_batch"] = _recall([r.tolist() for r in ids], truth)
+            log(f"  IvfIndex.search {N_BATCH} queries in one call: {out['batch_qps']:.0f} QPS "
+                f"(median of 3); recall@10 {out['recall_batch']:.4f}")
+    finally:
+        await server.close()
+        await engine.close()
+    out["bench_geometry"] = reference_geometry(torch, corpus, queries, device)
+    return out
+
+
+def reference_geometry(torch, corpus, queries, device, rpb=340, probes=2):
+    """Recall at the JAX package's recorded bench geometry: one add() into
+    an index sized for the corpus (a single recluster over every row),
+    rows per bucket 340, probes 2."""
+    from vector_store_tpu_torch import IndexParams
+    from vector_store_tpu_torch.core.ivf import IvfIndex
+
+    idx = IvfIndex(
+        IndexParams(dimensions=DIM, space="cosine", dtype="int8"),
+        initial_capacity=len(corpus),
+        rows_per_bucket=rpb,
+        device=device,
+    )
+    t0 = time.perf_counter()
+    idx.add(corpus)
+    add_s = time.perf_counter() - t0
+    truth = _oracle(torch, corpus, corpus[:0], queries, 10, device)
+    _, ids = idx.search(queries, 10, probes=probes)
+    rec = _recall([r.tolist() for r in ids], truth)
+    log(f"  bench geometry (one add, rows/bucket {rpb}, {idx.n_clusters} clusters x bucket "
+        f"{idx.state.bucket}): add {len(corpus) / add_s:.0f} vec/s; "
+        f"recall@10 at probes={probes}: {rec:.4f}")
+    return {"recall_p2": rec, "add_vec_s": len(corpus) / add_s}
+
+
+# --------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from vector_store_tpu_torch.core import ivf_cuda
+    from vector_store_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 oracle and route
+    torch.backends.cudnn.allow_tf32 = False
+    n = int(os.environ.get("VST_SMOKE_N", "1000000"))
+    t_start = time.perf_counter()
+
+    log("phase 0: device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"  torch {torch.__version__}  CUDA {torch.version.cuda}  "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t = time.perf_counter()
+    build.load_library()
+    log(f"  kernels built and loaded in {time.perf_counter() - t:.1f} s")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"    {line.strip()}")
+    from vector_store_tpu_torch.api.routes import native_available
+
+    log(f"  native JSON body parser (HTTP hot path) loaded: {native_available()}")
+
+    log("phase 1: kernels vs plain PyTorch at serving shapes")
+    report, timing = phase_kernels(torch)
+
+    log(f"phase 2-3: service at N={n}")
+    svc = asyncio.run(phase_service(torch, n))
+
+    kernels = [
+        {
+            "name": "ivf_search_fused",
+            "route": "cuda",
+            "source": "vector_store_tpu_torch/csrc/ivf_scan.cu",
+            "replaces": "vector_store_tpu/core/ivf_pallas.py:128",
+            "launches": svc["launches"]["search_fused"],
+            "max_abs_err": report["search_fused"]["err"],
+            "ms": timing["search_fused"][0],
+            "plain_ms": timing["search_fused"][1],
+        },
+        {
+            "name": "ivf_pool_scan",
+            "route": "cuda",
+            "source": "vector_store_tpu_torch/csrc/ivf_scan.cu",
+            "replaces": "vector_store_tpu/core/ivf_pallas.py:252",
+            "launches": svc["launches"]["pool_scan"],
+            "max_abs_err": report["pool_scan"]["err"],
+            "ms": timing["pool_scan"][0],
+            "plain_ms": timing["pool_scan"][1],
+        },
+    ]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

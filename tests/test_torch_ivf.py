@@ -1,0 +1,203 @@
+"""vector_store_tpu_torch IvfIndex against the JAX IvfIndex, on the CPU.
+
+Both indexes take the same numpy data through staging, a recluster and
+clustered adds.  Ids and counts must match exactly.  Search results are
+compared by recall against a float64 numpy oracle: the JAX package serves
+CPU queries from its XLA scan (bf16 scoring, approximate selection at
+scale) while the port runs its kernels' plain versions (f32 scoring), so
+the bar is recall within 0.02 of JAX, >= 0.9 mean overlap and the same
+top-1 id.
+"""
+
+import copy
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from vector_store_tpu.core import ivf as jivf
+from vector_store_tpu.types import IndexParams
+from vector_store_tpu_torch.core import ivf as tivf
+
+D = 64
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _clustered(n, d, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(64, d)).astype(np.float32)
+    return centers[rng.integers(0, 64, n)] + 0.3 * rng.normal(size=(n, d)).astype(
+        np.float32
+    )
+
+
+def _oracle(x, live, q, space, k):
+    """Exact top-k ids over the raw float64 rows; dead rows excluded."""
+    x, q = x.astype(np.float64), q.astype(np.float64)
+    if space == "cosine":
+        x = x / np.linalg.norm(x, axis=1, keepdims=True)
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+        d = -q @ x.T
+    elif space == "dot":
+        d = -q @ x.T
+    else:
+        d = (q * q).sum(1)[:, None] + (x * x).sum(1)[None, :] - 2 * q @ x.T
+    d[:, ~live] = np.inf
+    return np.argsort(d, axis=1)[:, :k]
+
+
+def _recall(got, want):
+    return np.mean([len(set(g) & set(w)) / len(w) for g, w in zip(got, want)])
+
+
+@functools.lru_cache(maxsize=None)
+def _built(dtype, space):
+    """JAX and port indexes fed the same adds and removes."""
+    x = _clustered(8000, D, seed=2)
+    params = IndexParams(dimensions=D, space=space, dtype=dtype)
+    jx = jivf.IvfIndex(params, cluster_min=4000)
+    tx = tivf.IvfIndex(params, cluster_min=4000, device="cpu")
+    ids = []
+    for lo, hi in ((0, 6000), (6000, 8000)):  # staging + recluster, clustered
+        a, b = jx.add(x[lo:hi]), tx.add(x[lo:hi])
+        assert a.tolist() == b.tolist()
+        ids.append(b)
+    ids = np.concatenate(ids)
+    dead = ids[::9]
+    jx.remove(dead)
+    tx.remove(dead)
+    live = np.ones(len(x), bool)
+    live[dead] = False
+    return jx, tx, x, live
+
+
+def test_plan_placement_matches_jax():
+    rng = np.random.default_rng(0)
+    cids = np.stack([rng.permutation(20)[:4] for _ in range(600)])
+    used = rng.integers(0, 40, 20)
+    free = {c: sorted(rng.choice(40, 3, replace=False).tolist()) for c in range(0, 20, 3)}
+    used_j, used_t = used.copy(), used.copy()
+    free_j, free_t = copy.deepcopy(free), copy.deepcopy(free)
+    want = jivf.plan_placement(cids, used_j, 40, free_j)
+    got = tivf.plan_placement(cids, used_t, 40, free_t)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(used_t, used_j)
+    assert free_t == free_j
+    assert got[2].any() and not got[2].all()  # the cascade and the overflow both ran
+
+
+def test_add_remove_ids_and_count_match_jax():
+    jx, tx, x, live = _built("int8", "cosine")
+    assert tx._clustered and jx._clustered
+    assert tx.count() == jx.count() == int(live.sum())
+    assert tx.n_clusters == jx.n_clusters
+    assert tx._next_rowid == jx._next_rowid
+    # every live row sits in exactly one slot, and the device mirrors agree
+    live_ids = np.sort(tx._rowid_h[tx._valid_h])
+    np.testing.assert_array_equal(live_ids, np.flatnonzero(live))
+    st = tx.state
+    assert (st.valid.numpy() == tx._valid_h).all()
+    assert (st.rowid.numpy()[tx._valid_h] == tx._rowid_h[tx._valid_h]).all()
+
+
+@pytest.mark.parametrize(
+    "dtype,space", [("int8", "cosine"), ("bfloat16", "l2"), ("float32", "dot")]
+)
+def test_recall_matches_jax(dtype, space):
+    jx, tx, x, live = _built(dtype, space)
+    rng = np.random.default_rng(5)
+    qi = rng.choice(np.flatnonzero(live), 64, replace=False)
+    q = x[qi] + 0.05 * rng.normal(size=(64, D)).astype(np.float32)
+    gt = _oracle(x, live, q, space, 10)
+    _, rj = jx.search(q, 10)
+    dt, rt = tx.search(q, 10)
+    assert dt.shape == (64, 10) and np.isfinite(dt).all()
+    assert (np.diff(dt, axis=1) >= 0).all()
+    rec_j, rec_t = _recall(rj, gt), _recall(rt, gt)
+    assert rec_t >= rec_j - 0.02, (rec_t, rec_j)
+    assert _recall(rt, rj) >= 0.9
+    assert (rt[:, 0] == rj[:, 0]).all()
+
+
+@pytest.mark.parametrize("k", [10, 50])
+def test_tombstones_never_return(k):
+    _, tx, x, live = _built("int8", "cosine")
+    _, ids = tx.search(x[:40], k)
+    got = ids[ids >= 0]
+    assert len(got) and live[got].all()
+
+
+def test_large_k_takes_the_pool_path(monkeypatch):
+    """k <= FUSED_MAX_K goes through B1, larger k through B2 + top-k."""
+    _, tx, x, _ = _built("int8", "cosine")
+    calls = []
+    for name in ("search_clustered_fused", "search_clustered_pool"):
+        fn = getattr(tivf, name)
+        monkeypatch.setattr(
+            tivf, name, lambda *a, _n=name, _f=fn, **kw: calls.append(_n) or _f(*a, **kw)
+        )
+    d32, i32 = tx.search(x[:4], tivf.FUSED_MAX_K)
+    d40, i40 = tx.search(x[:4], tivf.FUSED_MAX_K + 8)
+    assert calls == ["search_clustered_fused", "search_clustered_pool"]
+    np.testing.assert_array_equal(i40[:, :10], i32[:, :10])
+    np.testing.assert_allclose(d40[:, : tivf.FUSED_MAX_K], d32, atol=1e-5)
+
+
+def test_staging_search_matches_jax():
+    """Before the first recluster both serve the exact full-bank scan.
+
+    On one (JAX-built) bank, search_flat must agree to atol 1e-4, ids equal
+    where distances are separated.  Index against index, the banks differ
+    where normalisation rounded an int8 code the other way (ingest
+    quantizes the same bf16 rows, but XLA fuses the normalisation), which
+    moves a cosine distance by at most one code step, 1/127."""
+    x = _clustered(1500, D, seed=4)
+    params = IndexParams(dimensions=D, space="cosine", dtype="int8")
+    jx = jivf.IvfIndex(params, cluster_min=4000)
+    tx = tivf.IvfIndex(params, cluster_min=4000, device="cpu")
+    jx.add(x)
+    tx.add(x)
+    assert not tx._clustered
+    q = x[:32] + 0.05 * np.random.default_rng(1).normal(size=(32, D)).astype(np.float32)
+
+    dj, rj = (np.asarray(a) for a in jivf.search_flat(jx.state, q, "cosine", 10, approx=False))
+    ds, rs = tivf.search_flat(
+        tivf.state_from_numpy(jx.state, "cpu"), torch.from_numpy(q), "cosine", 10
+    )
+    np.testing.assert_allclose(ds.numpy(), dj, atol=1e-4)
+    sep = np.ones(dj.shape, bool)
+    sep[:, 1:] &= np.diff(dj, axis=1) > 1e-4
+    sep[:, :-1] &= np.diff(dj, axis=1) > 1e-4
+    np.testing.assert_array_equal(rs.numpy()[sep], rj[sep])
+
+    dj, rj = jx.search(q, 10)
+    dt, rt = tx.search(q, 10)
+    np.testing.assert_allclose(dt, dj, atol=1 / 127)
+    assert _recall(rt, rj) >= 0.9
+    assert (rt[:, 0] == rj[:, 0]).all()
+
+
+def test_compact_keeps_ids_and_results():
+    x = _clustered(9000, D, seed=7)
+    tx = tivf.IvfIndex(IndexParams(dimensions=D, dtype="int8"), cluster_min=4000, device="cpu")
+    ids = tx.add(x[:5000])
+    tx.remove(ids[:2500])  # churn: free slots, then spilled inserts refill
+    more = tx.add(x[5000:])
+    n = tx.count()
+    assert tx.compact(full=False) == {}
+    assert tx.count() == n
+    _, got = tx.search(x[5000:5016], 1)
+    assert (got[:, 0] == more[:16]).all()
+    assert tx.compact(full=True) == {}
+    assert tx.count() == n and not tx._free
+    _, got = tx.search(x[5000:5016], 1)
+    assert (got[:, 0] == more[:16]).all()

@@ -1,0 +1,753 @@
+"""IVF bucketed backend in PyTorch (counterpart of vector_store_tpu/core/ivf.py).
+
+Storage is bucketed by k-means cluster: vectors[K, B, D].  A probed
+cluster is one contiguous block, so a query reads p blocks of B*D bytes
+and scores them in the probe-scan kernels (core/ivf_cuda.py).  Row ids
+are an indirection (`rowid[K, B]`): a row's public id is a monotonic
+counter, so reclustering -- triggered whenever the live count doubles --
+re-places every row without invalidating ids.  Deletes are tombstones;
+inserts append to bucket tails, spilling to the next-nearest cluster when
+full.
+
+Differences from the JAX package, all by design:
+  * `place` and `unvalidate` update the bank tensors in place where JAX
+    rebuilt them through buffer donation;
+  * no fixed-shape padding of scatters, assigns or query batches (those
+    bounded XLA compiles; eager PyTorch has none);
+  * top-k is exact `torch.topk` where JAX used `approx_min_k`;
+  * the device is explicit (`device=`) and nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from vector_store_tpu.types import IndexParams
+
+from .distance import normalize, pairwise, preprocess
+from .ivf_cuda import scan_masks, search_clustered_fused, search_clustered_pool
+from .quantize import quantize_rows
+from .topk import INF, SENTINEL, topk_ascending
+
+# Rows accumulated (sequential buckets) before the first clustering.
+CLUSTER_MIN_ROWS = 1 << 16
+# Spill candidates per insert: a row tries its SPILL nearest clusters in order.
+SPILL = 4
+# Query-batch chunk: bounds the [q, p*B] pool and the [q, K] route transients.
+QCHUNK = 256
+PROBE_DEFAULT = 16
+# Largest k served by B1 (its top-k is k block-wide argmin passes); larger
+# k takes B2 + one torch.topk.
+FUSED_MAX_K = 32
+# Past this bank size, cluster overflow goes to the least-filled clusters
+# (marked dirty for the incremental compact) instead of doubling the bank.
+GROW_BYTES_MAX = 4 << 30
+# Rows per bucket target (see the JAX package for the geometry trade).
+ROWS_PER_BUCKET = int(os.environ.get("VST_IVF_ROWS_PER_BUCKET", "170"))
+# k-means: assignment chunk, Lloyd sample cap and iterations
+# (vector_store_tpu/core/cluster.py:47-51).
+ASSIGN_CHUNK = 4096
+LLOYD_SAMPLE = 1 << 18
+LLOYD_ITERS = 2
+# Clusters scanned per chunk of the full-bank scan.
+FLAT_SCAN_CLUSTERS = 128
+# Rows per add() step.
+ADD_CHUNK = 8192
+
+
+@dataclass
+class IvfState:
+    centroids: torch.Tensor  # [K, D] compute dtype
+    vectors: torch.Tensor  # [K, B, D] storage dtype
+    scales: torch.Tensor  # [K, B] f32 (int8 dequant; 1.0 otherwise)
+    valid: torch.Tensor  # [K, B] bool
+    rowid: torch.Tensor  # [K, B] int32 public ids (indirection)
+
+    @property
+    def n_clusters(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def bucket(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def dims(self) -> int:
+        return self.vectors.shape[2]
+
+
+_FIELDS = ("centroids", "vectors", "scales", "valid", "rowid")
+
+
+def k_for(rows: int, rows_per_bucket: int | None = None) -> int:
+    """Cluster count: ~rows_per_bucket rows each, 128-aligned, <= 64K."""
+    rpb = rows_per_bucket or ROWS_PER_BUCKET
+    k = min(max(rows // rpb, 1024), 1 << 16)
+    return max((k // 128) * 128, 128)
+
+
+def bucket_for(rows: int, k: int) -> int:
+    """Bucket width with 1.5x slack for skew and future inserts, in
+    multiples of 128 (the live-prefix sub-block)."""
+    return max(int(np.ceil(1.5 * rows / k / 128)) * 128, 128)
+
+
+def _storage_dtype(dtype: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[
+        dtype
+    ]
+
+
+def _compute_dtype(dtype: str) -> torch.dtype:
+    return torch.float32 if dtype == "float32" else torch.bfloat16
+
+
+def init(dims: int, k: int, bucket: int, dtype: str, device) -> IvfState:
+    return IvfState(
+        centroids=torch.zeros((k, dims), dtype=_compute_dtype(dtype), device=device),
+        vectors=torch.zeros((k, bucket, dims), dtype=_storage_dtype(dtype), device=device),
+        scales=torch.ones((k, bucket), dtype=torch.float32, device=device),
+        valid=torch.zeros((k, bucket), dtype=torch.bool, device=device),
+        rowid=torch.full((k, bucket), SENTINEL, dtype=torch.int32, device=device),
+    )
+
+
+def _from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16, as JAX reads out
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)  # copy: JAX read-outs are read-only
+
+
+def state_from_numpy(src, device) -> IvfState:
+    """A state from any object with the five IvfState fields as arrays
+    (e.g. a JAX IvfState read out with np.asarray)."""
+    return IvfState(**{f: _from_numpy(getattr(src, f), device) for f in _FIELDS})
+
+
+def state_to_numpy(state: IvfState) -> dict[str, np.ndarray]:
+    """The five fields as numpy arrays; bf16 fields widen exactly to f32."""
+    out = {}
+    for f in _FIELDS:
+        t = getattr(state, f).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[f] = t.numpy()
+    return out
+
+
+# --------------------------------------------------------------------------
+# device steps
+
+
+def assign_top(
+    centroids: torch.Tensor, vecs: torch.Tensor, space: str, a: int
+) -> torch.Tensor:
+    """[M, D] preprocessed rows -> their `a` nearest clusters [M, a] int32."""
+    d = pairwise(vecs, centroids, space)
+    _, cids = topk_ascending(d, a)
+    return cids.to(torch.int32)
+
+
+def place(
+    state: IvfState,
+    vecs_raw: torch.Tensor,  # [M, D] raw rows
+    ks: torch.Tensor,  # [M] target cluster
+    poss: torch.Tensor,  # [M] target position
+    rowids: torch.Tensor,  # [M]
+    space: str,
+    dtype: str,
+) -> None:
+    """Write a prepared batch into its (cluster, position) slots, in place."""
+    vecs = preprocess(vecs_raw.float(), space)
+    if dtype == "int8":
+        rows, scl = quantize_rows(vecs)
+    else:
+        rows = vecs.to(_storage_dtype(dtype))
+        scl = torch.ones((vecs.shape[0],), dtype=torch.float32, device=vecs.device)
+    state.vectors[ks, poss] = rows
+    state.scales[ks, poss] = scl
+    state.valid[ks, poss] = True
+    state.rowid[ks, poss] = rowids.to(torch.int32)
+
+
+def unvalidate(state: IvfState, ks: torch.Tensor, poss: torch.Tensor) -> None:
+    """Tombstone slots, in place."""
+    state.valid[ks, poss] = False
+
+
+def search_flat(
+    state: IvfState, queries: torch.Tensor, space: str, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-bank exact scan (staging-phase serving): chunked matmul and
+    exact top-k with a running merge.  Rows and query round to the compute
+    dtype first, as in the JAX package."""
+    cdt = state.centroids.dtype
+    q = preprocess(queries.float(), space).to(cdt)
+    Q = q.shape[0]
+    K, B, D = state.vectors.shape
+    quantized = state.vectors.dtype == torch.int8
+    best_d = torch.full((Q, k), INF, dtype=torch.float32, device=q.device)
+    best_r = torch.full((Q, k), SENTINEL, dtype=torch.int32, device=q.device)
+    for k0 in range(0, K, FLAT_SCAN_CLUSTERS):
+        k1 = min(k0 + FLAT_SCAN_CLUSTERS, K)
+        cand = state.vectors[k0:k1].reshape(-1, D).float()
+        if quantized:
+            cand = cand * state.scales[k0:k1].reshape(-1, 1)
+        d = pairwise(q, cand.to(cdt), space)
+        d = d.masked_fill(~state.valid[k0:k1].reshape(1, -1), INF)
+        cd, pos = topk_ascending(d, min(k, d.shape[1]))
+        cr = state.rowid[k0:k1].reshape(-1)[pos]
+        best_d, mpos = topk_ascending(torch.cat([best_d, cd], dim=1), k)
+        best_r = torch.gather(torch.cat([best_r, cr], dim=1), 1, mpos)
+    best_r = torch.where(torch.isinf(best_d), SENTINEL, best_r)
+    return best_d, best_r
+
+
+# --- recluster steps
+
+
+def _gather_dequant(
+    vectors: torch.Tensor, scales: torch.Tensor, ids: torch.Tensor
+) -> torch.Tensor:
+    """Flat-bank row gather with int8 dequant -> [n, D] f32."""
+    K, B, D = vectors.shape
+    rows = vectors.reshape(K * B, D)[ids].float()
+    if vectors.dtype == torch.int8:
+        rows = rows * scales.reshape(K * B)[ids][:, None]
+    return rows
+
+
+def _lloyd_iter(vectors, scales, centroids, ids, space, chunk):
+    """One Lloyd iteration over the sample rows `ids` (flat bank slots)."""
+    cdt = centroids.dtype
+    k, D = centroids.shape
+    sums = torch.zeros((k, D), dtype=torch.float32, device=vectors.device)
+    cnts = torch.zeros((k,), dtype=torch.float32, device=vectors.device)
+    for off in range(0, len(ids), chunk):
+        rows = _gather_dequant(vectors, scales, ids[off : off + chunk])
+        cid = torch.argmin(pairwise(rows.to(cdt), centroids, space), dim=1)
+        sums.index_add_(0, cid, rows)
+        cnts.index_add_(0, cid, torch.ones_like(cid, dtype=torch.float32))
+    mean = sums / torch.clamp(cnts, min=1.0)[:, None]
+    if space == "cosine":
+        mean = normalize(mean)
+    return torch.where((cnts > 0)[:, None], mean.to(cdt), centroids)
+
+
+def _assign_pass(vectors, scales, centroids, ids, space, a, chunk) -> torch.Tensor:
+    """Top-`a` cluster assignment [n, a] int32 of the rows `ids`."""
+    cdt = centroids.dtype
+    out = []
+    for off in range(0, len(ids), chunk):
+        rows = _gather_dequant(vectors, scales, ids[off : off + chunk])
+        out.append(assign_top(centroids, rows.to(cdt), space, a))
+    return torch.cat(out)
+
+
+def permute_build(
+    old: IvfState,
+    centroids: torch.Tensor,
+    perm: torch.Tensor,  # [K', B'] flat source slot in old (SENTINEL = empty)
+) -> IvfState:
+    """Recluster materialisation: gather old flat rows into new buckets."""
+    Ko, Bo, D = old.vectors.shape
+    ok = perm != SENTINEL
+    src = torch.clamp(perm, 0, Ko * Bo - 1)
+    return IvfState(
+        centroids=centroids,
+        vectors=old.vectors.reshape(Ko * Bo, D)[src],
+        scales=old.scales.reshape(-1)[src],
+        valid=ok,
+        rowid=torch.where(ok, old.rowid.reshape(-1)[src], SENTINEL),
+    )
+
+
+# --------------------------------------------------------------------------
+
+
+def plan_placement(
+    cids: np.ndarray,
+    n_used: np.ndarray,
+    bucket: int,
+    free: dict[int, list[int]] | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side slot allocation with spill cascade.
+
+    cids [M, A] preference-ordered clusters per row.  Returns
+    (ks, poss, unplaced_mask); n_used (and `free`, when given) are
+    updated in place.  Tombstoned positions in `free` are reused
+    before the append cursor advances, so delete/reinsert churn does
+    not leak slots (leaked slots forced bucket-doubling reallocations
+    of the whole bank even at flat live count)."""
+    m = len(cids)
+    ks = np.full((m,), -1, dtype=np.int64)
+    poss = np.zeros((m,), dtype=np.int64)
+    pending = np.arange(m)
+    for a in range(cids.shape[1]):
+        if len(pending) == 0:
+            break
+        want = cids[pending, a]
+        order = np.argsort(want, kind="stable")
+        w_sorted = want[order]
+        starts = np.r_[0, np.flatnonzero(np.diff(w_sorted)) + 1]
+        ends = np.r_[starts[1:], len(w_sorted)]
+        still = []
+        for s0, s1 in zip(starts, ends):
+            c = int(w_sorted[s0])
+            rows = pending[order[s0:s1]]
+            fl = free.get(c) if free is not None else None
+            take = min(len(fl), len(rows)) if fl else 0
+            if take:
+                got = rows[:take]
+                ks[got] = c
+                poss[got] = [fl.pop() for _ in range(take)]
+                if not fl:
+                    free.pop(c, None)
+                rows = rows[take:]
+            if len(rows):
+                fit = min(len(rows), max(bucket - int(n_used[c]), 0))
+                if fit:
+                    got = rows[:fit]
+                    ks[got] = c
+                    poss[got] = n_used[c] + np.arange(fit)
+                    n_used[c] += fit
+                    rows = rows[fit:]
+            if len(rows):
+                still.append(rows)
+        pending = (
+            np.concatenate(still) if still else np.empty((0,), np.int64)
+        )
+    return ks, poss, ks < 0
+
+
+class IvfIndex:
+    """Host wrapper: numpy in, numpy out, state on `device`.
+
+    Ids are monotonic rowids, stable across bucket growth, reclustering
+    and compaction (the engine keymap never needs a remap event)."""
+
+    def __init__(
+        self,
+        params: IndexParams,
+        initial_capacity: int | None = None,
+        probes: int = PROBE_DEFAULT,
+        cluster_min: int = CLUSTER_MIN_ROWS,
+        rows_per_bucket: int | None = None,
+        reserve_rows: int = 0,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        self.params = params
+        self.space = params.space
+        self.dtype = params.dtype if params.dtype in ("float32", "int8") else "bfloat16"
+        self.dims = params.dimensions
+        self.probes = probes
+        self.device = torch.device(device)
+        self.cluster_min = cluster_min
+        self.rows_per_bucket = rows_per_bucket or ROWS_PER_BUCKET
+        # bulk-load mode: the first clustering sizes k and the bucket for
+        # `reserve_rows`, and doubling reclusters wait until the live count
+        # exceeds it
+        self._reserve = int(reserve_rows or 0)
+        rows0 = max(initial_capacity or 0, cluster_min)
+        k = k_for(rows0, self.rows_per_bucket)
+        b = bucket_for(rows0, k)
+        self._state = init(self.dims, k, b, self.dtype, self.device)
+        self._clustered = False
+        self._clustered_at = 0  # live count at last recluster
+        # host mirrors (placement bookkeeping without device readbacks)
+        self._n_used = np.zeros((k,), dtype=np.int64)
+        self._valid_h = np.zeros((k, b), dtype=bool)
+        self._rowid_h = np.full((k, b), -1, dtype=np.int64)
+        self._loc = np.full((0, 2), -1, dtype=np.int64)  # rowid -> (k, pos)
+        # tombstoned (cluster -> positions) free for reuse
+        self._free: dict[int, list[int]] = {}
+        # clusters that received spilled rows: the incremental compact's list
+        self._dirty: set[int] = set()
+        self._next_rowid = 0
+        self._n_live = 0
+        self._lock = threading.Lock()
+
+    # -- introspection ------------------------------------------------------
+
+    def count(self) -> int:
+        return self._n_live
+
+    @property
+    def state(self) -> IvfState:
+        return self._state
+
+    @property
+    def n_clusters(self) -> int:
+        return self._state.n_clusters
+
+    # -- helpers ------------------------------------------------------------
+
+    def _idx(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
+
+    def _grow_loc(self, n: int) -> None:
+        if self._next_rowid + n > len(self._loc):
+            new_len = max(2 * len(self._loc), self._next_rowid + n, 1024)
+            pad = np.full((new_len - len(self._loc), 2), -1, dtype=np.int64)
+            self._loc = np.concatenate([self._loc, pad])
+
+    def _grow_bucket(self) -> None:
+        """Double B -- realloc event, ids unaffected."""
+        s = self._state
+
+        def grow(t, fill):
+            return torch.cat([t, torch.full_like(t, fill)], dim=1)
+
+        self._state = IvfState(
+            centroids=s.centroids,
+            vectors=grow(s.vectors, 0),
+            scales=grow(s.scales, 1.0),
+            valid=grow(s.valid, False),
+            rowid=grow(s.rowid, SENTINEL),
+        )
+        B = s.bucket
+        self._valid_h = np.pad(self._valid_h, ((0, 0), (0, B)))
+        self._rowid_h = np.pad(self._rowid_h, ((0, 0), (0, B)), constant_values=-1)
+
+    # -- mutation -----------------------------------------------------------
+
+    def add(self, vectors) -> np.ndarray:
+        vectors = np.asarray(vectors, dtype=np.float32)
+        if vectors.ndim == 1:
+            vectors = vectors[None, :]
+        n, d = vectors.shape
+        if d != self.dims:
+            raise ValueError(f"dimension mismatch: index {self.dims}, got {d}")
+        with self._lock:
+            self._grow_loc(n)
+            rowids = np.arange(self._next_rowid, self._next_rowid + n, dtype=np.int64)
+            self._next_rowid += n
+            for off in range(0, n, ADD_CHUNK):
+                blk = vectors[off : off + ADD_CHUNK]
+                rid = rowids[off : off + ADD_CHUNK]
+                if self._clustered:
+                    self._add_clustered(blk, rid)
+                else:
+                    self._add_staging(blk, rid)
+            self._n_live += n
+            self._maybe_recluster()
+        return rowids
+
+    def _to_dev(self, blk: np.ndarray) -> torch.Tensor:
+        """One host->device copy per block.  bf16 and int8 banks round the
+        block to bf16 first, as the JAX package ships it (ivf.py:885-895),
+        so `place` normalises and quantizes the same values."""
+        t = torch.as_tensor(blk, dtype=torch.float32, device=self.device)
+        if self.dtype != "float32":
+            t = t.to(torch.bfloat16)
+        return t
+
+    def _scatter(self, blk: torch.Tensor, ks, poss, rid) -> None:
+        place(
+            self._state,
+            blk,
+            self._idx(ks),
+            self._idx(poss),
+            self._idx(rid),
+            self.space,
+            self.dtype,
+        )
+        self._valid_h[ks, poss] = True
+        self._rowid_h[ks, poss] = rid
+        self._loc[rid, 0] = ks
+        self._loc[rid, 1] = poss
+
+    def _add_staging(self, blk, rid: np.ndarray) -> None:
+        """Sequential fill before the first clustering, by per-cluster fill
+        counts (rows placed before a _grow_bucket keep their slots)."""
+        blk = self._to_dev(blk)
+        m = len(blk)
+        K, B = self._state.n_clusters, self._state.bucket
+        while int(self._n_used.sum()) + m > K * B:
+            self._grow_bucket()
+            B = self._state.bucket
+        rem = B - self._n_used  # free tail slots per cluster, in order
+        cum = np.cumsum(rem)
+        j = np.arange(m)
+        ks = np.searchsorted(cum, j, side="right")
+        prev = np.where(ks > 0, cum[np.maximum(ks - 1, 0)], 0)
+        poss = self._n_used[ks] + (j - prev)
+        np.add.at(self._n_used, ks, 1)
+        self._scatter(blk, ks, poss, rid)
+
+    @staticmethod
+    def _place_overflow(ks, poss, unplaced, used, bucket) -> bool:
+        """Assign overflow rows to the clusters with the most free tail
+        slots (mutates ks/poss/used in place).  False if the whole bank
+        is genuinely full (caller must grow after all)."""
+        over = np.flatnonzero(unplaced)
+        space = np.maximum(bucket - used, 0)
+        order = np.argsort(-space, kind="stable")
+        cum = np.cumsum(space[order])
+        if cum[-1] < len(over):
+            return False
+        j = np.searchsorted(cum, np.arange(1, len(over) + 1), side="left")
+        target = order[j]
+        prev = np.r_[0, cum[:-1]]
+        off = np.arange(len(over)) - prev[j]
+        ks[over] = target
+        poss[over] = used[target] + off
+        np.add.at(used, target, 1)
+        return True
+
+    def _add_clustered(self, blk, rid: np.ndarray) -> None:
+        blk = self._to_dev(blk)  # one copy, shared by assign and place
+        prep = preprocess(blk.float(), self.space).to(self._state.centroids.dtype)
+        cids = assign_top(self._state.centroids, prep, self.space, SPILL).cpu().numpy()
+        while True:
+            used = self._n_used.copy()
+            free_try = {k: v[:] for k, v in self._free.items()}
+            ks, poss, unplaced = plan_placement(
+                cids, used, self._state.bucket, free=free_try
+            )
+            if not unplaced.any():
+                break
+            K, B, D = self._state.vectors.shape
+            bank_bytes = K * B * D * self._state.vectors.element_size()
+            if 2 * bank_bytes > GROW_BYTES_MAX and self._place_overflow(
+                ks, poss, unplaced, used, B
+            ):
+                # growth-capped: overflow went to the emptiest clusters;
+                # `spilled` below marks them dirty for the incremental compact
+                break
+            self._grow_bucket()
+        self._n_used = used
+        self._free = free_try
+        spilled = ks != cids[:, 0]
+        if spilled.any():
+            self._dirty.update(int(c) for c in np.unique(ks[spilled]))
+        self._scatter(blk, ks, poss, rid)
+
+    def remove(self, rowids) -> None:
+        rowids = np.unique(np.asarray(rowids, dtype=np.int64).reshape(-1))
+        rowids = rowids[(rowids >= 0) & (rowids < self._next_rowid)]
+        if rowids.size == 0:
+            return
+        with self._lock:
+            rowids = rowids[self._loc[rowids, 0] >= 0]
+            if rowids.size == 0:
+                return
+            ks, poss = self._loc[rowids, 0], self._loc[rowids, 1]
+            if self._clustered:
+                for k, p in zip(ks.tolist(), poss.tolist()):
+                    self._free.setdefault(k, []).append(p)
+            unvalidate(self._state, self._idx(ks), self._idx(poss))
+            self._valid_h[ks, poss] = False
+            self._loc[rowids] = -1
+            self._n_live -= len(rowids)
+
+    # -- clustering ---------------------------------------------------------
+
+    def _maybe_recluster(self) -> None:
+        if self._n_live < self.cluster_min:
+            return
+        if self._clustered and (
+            self._n_live < 2 * self._clustered_at or self._n_live <= self._reserve
+        ):
+            return
+        self._recluster_locked()
+
+    def compact(self, full: bool | None = None) -> dict:
+        """Maintenance pass; ids are stable, so the returned remap is empty.
+
+        full=True reclusters from scratch (drops tombstoned slots);
+        full=False re-places only rows that spilled past their first-choice
+        cluster.  None picks full only when the live count doubled since
+        the last recluster."""
+        with self._lock:
+            if self._n_live == 0:
+                return {}
+            if full is None:
+                full = not self._clustered or self._n_live >= 2 * self._clustered_at
+            if full:
+                self._recluster_locked()
+            else:
+                self._reassign_dirty_locked()
+        return {}
+
+    def _reassign_dirty_locked(self) -> None:
+        """Incremental recluster: move rows of clusters that received
+        spilled inserts to their first-choice cluster where it has room
+        (centroids unchanged)."""
+        if not self._dirty or not self._clustered:
+            self._dirty = set()
+            return
+        s = self._state
+        K, B, D = s.vectors.shape
+        dirty = np.fromiter(self._dirty, dtype=np.int64)
+        self._dirty = set()
+        rows_k, rows_p = np.nonzero(self._valid_h[dirty])
+        if len(rows_k) == 0:
+            return
+        flat = dirty[rows_k] * B + rows_p
+        a_chunk = ASSIGN_CHUNK if K <= (1 << 15) else 1024
+        cids = (
+            _assign_pass(
+                s.vectors, s.scales, s.centroids, self._idx(flat), self.space, SPILL, a_chunk
+            )
+            .cpu()
+            .numpy()
+        )
+        move = cids[:, 0] != flat // B
+        if not move.any():
+            return
+        # first choice only; plan before freeing the movers' own slots, so
+        # a new slot never aliases a mover's source and the chunked
+        # gather + place below reads the bank safely while it changes
+        flat_mv, first_mv = flat[move], cids[move, :1]
+        used = self._n_used.copy()
+        free_try = {k: v[:] for k, v in self._free.items()}
+        ks, poss, unplaced = plan_placement(first_mv, used, B, free=free_try)
+        if unplaced.any():
+            self._dirty.update(int(c) for c in np.unique(flat_mv[unplaced] // B))
+        placed = ~unplaced
+        if not placed.any():
+            return
+        self._n_used = used
+        self._free = free_try
+        flat_mv, ks, poss = flat_mv[placed], ks[placed], poss[placed]
+        old_k, old_p = flat_mv // B, flat_mv % B
+        rowids = self._rowid_h[old_k, old_p]
+        src, ks_t, poss_t = self._idx(flat_mv), self._idx(ks), self._idx(poss)
+        rid_t = self._idx(rowids)
+        CH = 16384
+        for off in range(0, len(flat_mv), CH):
+            sl = slice(off, off + CH)
+            rows = _gather_dequant(self._state.vectors, self._state.scales, src[sl])
+            # rows are stored preprocessed; preprocess is idempotent
+            place(self._state, rows, ks_t[sl], poss_t[sl], rid_t[sl], self.space, self.dtype)
+        unvalidate(self._state, self._idx(old_k), self._idx(old_p))
+        self._valid_h[old_k, old_p] = False
+        for k_, p_ in zip(old_k.tolist(), old_p.tolist()):
+            self._free.setdefault(int(k_), []).append(int(p_))
+        self._valid_h[ks, poss] = True
+        self._rowid_h[ks, poss] = rowids
+        self._loc[rowids, 0] = ks
+        self._loc[rowids, 1] = poss
+
+    def _recluster_locked(self) -> None:
+        s = self._state
+        flat_live = np.flatnonzero(self._valid_h.reshape(-1))
+        n = len(flat_live)
+        if n == 0:
+            return
+        k_new = k_for(max(n, self._reserve), self.rows_per_bucket)
+        cdt = s.centroids.dtype
+        a_chunk = ASSIGN_CHUNK if k_new <= (1 << 15) else 1024
+
+        # k-means: strided live sample init + Lloyd iterations
+        stride = max(n // k_new, 1)
+        centroids = _gather_dequant(
+            s.vectors, s.scales, self._idx(flat_live[::stride][:k_new])
+        ).to(cdt)
+        if centroids.shape[0] < k_new:  # degenerate case: repeat
+            reps = -(-k_new // centroids.shape[0])
+            centroids = centroids.repeat(reps, 1)[:k_new]
+        sample_n = min(n, LLOYD_SAMPLE)
+        s_stride = max(n // sample_n, 1)
+        sample = self._idx(flat_live[::s_stride][:sample_n])
+        for _ in range(LLOYD_ITERS):
+            centroids = _lloyd_iter(s.vectors, s.scales, centroids, sample, self.space, a_chunk)
+
+        # assign every live row (top-SPILL for the placement cascade)
+        all_cids = (
+            _assign_pass(
+                s.vectors, s.scales, centroids, self._idx(flat_live), self.space, SPILL, a_chunk
+            )
+            .cpu()
+            .numpy()
+        )
+
+        # host placement into fresh buckets, then the device permute
+        b_new = bucket_for(max(n, self._reserve), k_new)
+        while True:
+            used = np.zeros((k_new,), dtype=np.int64)
+            ks, poss, unplaced = plan_placement(all_cids, used, b_new)
+            if not unplaced.any():
+                break
+            b_new = -(-int(b_new * 1.5) // 128) * 128  # stay 128-aligned
+        perm = np.full((k_new, b_new), SENTINEL, dtype=np.int64)
+        perm[ks, poss] = flat_live
+        rowid_flat = self._rowid_h.reshape(-1)
+        self._state = permute_build(s, centroids, self._idx(perm))
+        del s
+
+        # host mirrors follow the same permutation
+        placed_rowids = rowid_flat[flat_live]
+        self._rowid_h = np.full((k_new, b_new), -1, dtype=np.int64)
+        self._rowid_h[ks, poss] = placed_rowids
+        self._valid_h = np.zeros((k_new, b_new), dtype=bool)
+        self._valid_h[ks, poss] = True
+        self._n_used = used
+        self._loc[placed_rowids, 0] = ks
+        self._loc[placed_rowids, 1] = poss
+        self._free = {}  # every tombstone was just dropped
+        # rows the recluster itself had to spill stay on the incremental list
+        spilled = ks != all_cids[:, 0]
+        self._dirty = {int(c) for c in np.unique(ks[spilled])}
+        self._clustered = True
+        self._clustered_at = self._n_live
+
+    # -- query ----------------------------------------------------------------
+
+    def search_dispatch(self, queries, k: int, probes: int | None = None):
+        """Enqueue a batched query; returns fetch() -> (dist, rowids).
+
+        The device work is enqueued under the index lock on the current
+        stream; fetch() does the host readback and may run outside the
+        lock.  A later in-place update is enqueued after these kernels on
+        the same stream, and the results are fresh tensors, so several
+        batches can be in flight (MicroBatcher pipeline depth)."""
+        probes = probes or self.probes
+        queries = np.asarray(queries, dtype=np.float32)
+        single = queries.ndim == 1
+        if single:
+            queries = queries[None, :]
+        n, d = queries.shape
+        if d != self.dims:
+            raise ValueError(f"dimension mismatch: index {self.dims}, got {d}")
+        outs_d, outs_i = [], []
+        with self._lock:
+            state = self._state
+            masks = scan_masks(state) if self._clustered else None
+            for off in range(0, n, QCHUNK):
+                q = torch.as_tensor(queries[off : off + QCHUNK], device=self.device)
+                if not self._clustered:
+                    dd, ii = search_flat(state, q, self.space, k)
+                elif k <= FUSED_MAX_K:
+                    dd, ii = search_clustered_fused(
+                        state, q, self.space, k, probes, masks
+                    )
+                else:
+                    dd, ii = search_clustered_pool(
+                        state, q, self.space, k, probes, masks
+                    )
+                outs_d.append(dd)
+                outs_i.append(ii)
+
+        def fetch() -> tuple[np.ndarray, np.ndarray]:
+            dist = torch.cat(outs_d).cpu().numpy()
+            ids = torch.cat(outs_i).cpu().numpy().astype(np.int64)
+            ids[~np.isfinite(dist)] = -1
+            if single:
+                return dist[0], ids[0]
+            return dist, ids
+
+        return fetch
+
+    def search(
+        self, queries, k: int, probes: int | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """(dist[n, k] ascending, rowids[n, k]); absent results (inf, -1)."""
+        return self.search_dispatch(queries, k, probes)()

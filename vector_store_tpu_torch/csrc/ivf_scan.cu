@@ -1,0 +1,363 @@
+// IVF probe-scan kernels for Hopper (sm_90a), with a plain C interface
+// (bound with ctypes by vector_store_tpu_torch/core/ivf_cuda.py).
+//
+// Replaces the two Pallas TPU kernels of vector_store_tpu/core/ivf_pallas.py:
+//
+//   ivf_search_fused  <- _kernel (ivf_pallas.py:128), called by search_fused
+//                        (:418, pallas_call at :500).  Scores every live row
+//                        of each query's p probed buckets and keeps the k
+//                        best (k <= 32).
+//   ivf_pool_scan     <- _pool_kernel (ivf_pallas.py:252), called by
+//                        pool_scan_fused (:329, pallas_call at :396).  Same
+//                        scoring, but writes the raw [Q, p*B] distance pool;
+//                        also reads the int4 split-nibble bank.
+//
+// What bounds them on this card: device-memory bytes.  Each query reads the
+// live prefix of its p probed [B, D] buckets once -- p*B*D bytes for an int8
+// bank (half that packed) -- against two flops per byte, far below the
+// H100's compute-to-bandwidth ratio.  The design keeps every other access
+// out of device memory:
+//   * one warp scores one bank row; each lane loads 16 bytes at a time, so
+//     a warp streams 512 contiguous bytes per step;
+//   * the query is staged once per block in shared memory, transposed by
+//     16-byte chunk so that the 32 lanes of a warp read 32 consecutive
+//     floats (no bank conflicts);
+//   * rows past a bucket's live prefix (nsb[c] * 128 rows) and tombstoned
+//     rows (rowid == SENTINEL) are never read -- their distance is INF;
+//   * B1 keeps the [p*B] candidate pool in shared memory and takes k
+//     block-wide argmin passes, ties to the lowest pool position (the order
+//     jnp.argmin gives), so only [k] results reach device memory.
+//
+// Distances (ascending): cosine 1 - s*(x.q), dot -s*(x.q),
+// l2 |q|^2 + s^2|x|^2 - 2s*(x.q); the row scale s applies to int8 and
+// packed banks only (packed: s * 127/7).  Sums are f32, in another order
+// than the plain PyTorch versions.
+//
+// Neither kernel allocates: the caller passes every buffer.  Both launch on
+// the caller's stream and return cudaGetLastError() of the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kSentinel = INT_MAX;  // "no row" id (vector_store_tpu core/topk.py)
+constexpr int kSubBlock = 128;      // live-prefix granularity (ivf_pallas.SB)
+constexpr int kFusedThreads = 512;
+constexpr int kPoolThreads = 256;
+constexpr int kMaxSmem = 232448;    // opt-in shared memory per block on sm_90
+constexpr float kInt4Scale = 127.0f / 7.0f;
+enum Space { kCosine = 0, kDot = 1, kL2 = 2 };
+enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2, kPacked = 3 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+// sign-extend a 4-bit code
+__device__ __forceinline__ float nibble(int v) { return static_cast<float>((v ^ 8) - 8); }
+
+// Stage one query [D] into shared memory in the layout row_dot reads.
+// A row of dw stored elements is n4 full 16-byte chunks of N = 16/sizeof(T)
+// elements, then a tail.  Element t of chunk c is read by lane c % 32, so its
+// query weight goes to qs[t * n4 + c]; tail elements keep their index.
+// Packed rows hold dims i and i + D/2 in byte i: the low dims fill
+// qs[0, N*n4), the high dims qs[N*n4, 2*N*n4), and tail byte i puts its
+// pair at qs[2i], qs[2i + 1].
+template <typename T, bool PACKED>
+__device__ void stage_query(const float* __restrict__ q, float* qs, int dw, int n4) {
+  constexpr int N = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < dw; i += blockDim.x) {
+    const int c = i / N, t = i % N;
+    if constexpr (PACKED) {
+      if (c < n4) {
+        qs[t * n4 + c] = q[i];
+        qs[N * n4 + t * n4 + c] = q[i + dw];
+      } else {
+        qs[2 * i] = q[i];
+        qs[2 * i + 1] = q[i + dw];
+      }
+    } else {
+      qs[c < n4 ? t * n4 + c : i] = q[i];
+    }
+  }
+}
+
+// This lane's share of x.q and |x|^2 for one stored row.
+template <typename T, bool PACKED>
+__device__ __forceinline__ void row_dot(const T* __restrict__ row, const float* __restrict__ qs,
+                                        int dw, int n4, int lane, float& dot, float& sq) {
+  constexpr int N = 16 / sizeof(T);
+  const uint4* r4 = reinterpret_cast<const uint4*>(row);
+  for (int c = lane; c < n4; c += 32) {
+    const uint4 u = __ldg(r4 + c);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      if constexpr (PACKED) {
+        const int b = static_cast<int>(e[t]);
+        const float lo = nibble(b & 15), hi = nibble(b >> 4);
+        dot = fmaf(lo, qs[t * n4 + c], dot);
+        dot = fmaf(hi, qs[N * n4 + t * n4 + c], dot);
+        sq = fmaf(lo, lo, sq);
+        sq = fmaf(hi, hi, sq);
+      } else {
+        const float x = to_f(e[t]);
+        dot = fmaf(x, qs[t * n4 + c], dot);
+        sq = fmaf(x, x, sq);
+      }
+    }
+  }
+  for (int i = N * n4 + lane; i < dw; i += 32) {
+    if constexpr (PACKED) {
+      const int b = static_cast<int>(row[i]);
+      const float lo = nibble(b & 15), hi = nibble(b >> 4);
+      dot = fmaf(lo, qs[2 * i], dot);
+      dot = fmaf(hi, qs[2 * i + 1], dot);
+      sq = fmaf(lo, lo, sq);
+      sq = fmaf(hi, hi, sq);
+    } else {
+      const float x = to_f(row[i]);
+      dot = fmaf(x, qs[i], dot);
+      sq = fmaf(x, x, sq);
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Lexicographic (distance, position) minimum across the warp.
+__device__ __forceinline__ void warp_argmin(float& d, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od = __shfl_xor_sync(0xffffffffu, d, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (od < d || (od == d && oi < i)) {
+      d = od;
+      i = oi;
+    }
+  }
+}
+
+__device__ __forceinline__ float row_distance(float dot, float sq, float s, float q2, int space) {
+  dot = dot * s;
+  if (space == kL2) return q2 + sq * s * s - 2.0f * dot;
+  if (space == kDot) return -dot;
+  return 1.0f - dot;
+}
+
+// B1: one block per query.  grid (Q), block kFusedThreads,
+// dynamic shared memory (D + p*B) floats.
+template <typename T>
+__global__ void __launch_bounds__(kFusedThreads)
+    search_fused_kernel(const T* __restrict__ vectors, const float* __restrict__ scales,
+                        const int32_t* __restrict__ rowid, const float* __restrict__ queries,
+                        const float* __restrict__ qsq, const int32_t* __restrict__ cids,
+                        const int32_t* __restrict__ nsb, int B, int D, int n4, int p, int k,
+                        int space, int scaled, float* __restrict__ out_d,
+                        int32_t* __restrict__ out_r) {
+  extern __shared__ float smem[];
+  float* qs = smem;       // [D] staged query
+  float* pool = smem + D;  // [p*B] candidate distances
+  __shared__ float red_d[kFusedThreads / 32];
+  __shared__ int red_i[kFusedThreads / 32];
+
+  const int qi = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int P = p * B;
+  stage_query<T, false>(queries + static_cast<size_t>(qi) * D, qs, D, n4);
+  for (int i = threadIdx.x; i < P; i += blockDim.x) pool[i] = CUDART_INF_F;
+  __syncthreads();
+
+  const float q2 = qsq[qi];
+  for (int r = 0; r < p; ++r) {
+    const int c = cids[qi * p + r];
+    const int live = min(nsb[c] * kSubBlock, B);
+    for (int j = warp; j < live; j += nwarps) {
+      const size_t slot = static_cast<size_t>(c) * B + j;
+      if (rowid[slot] == kSentinel) continue;  // tombstone: stays INF
+      float dot = 0.0f, sq = 0.0f;
+      row_dot<T, false>(vectors + slot * D, qs, D, n4, lane, dot, sq);
+      dot = warp_sum(dot);
+      sq = warp_sum(sq);
+      if (lane == 0) {
+        pool[r * B + j] = row_distance(dot, sq, scaled ? scales[slot] : 1.0f, q2, space);
+      }
+    }
+  }
+  __syncthreads();
+
+  // k extract-min passes over the pool; ties go to the lowest position
+  for (int t = 0; t < k; ++t) {
+    float bd = CUDART_INF_F;
+    int bi = INT_MAX;
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      const float v = pool[i];
+      if (v < bd) {
+        bd = v;
+        bi = i;
+      }
+    }
+    warp_argmin(bd, bi);
+    if (lane == 0) {
+      red_d[warp] = bd;
+      red_i[warp] = bi;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      bd = lane < nwarps ? red_d[lane] : CUDART_INF_F;
+      bi = lane < nwarps ? red_i[lane] : INT_MAX;
+      warp_argmin(bd, bi);
+      if (lane == 0) {
+        int rid = kSentinel;
+        if (bi < P) {  // a finite candidate was left
+          pool[bi] = CUDART_INF_F;
+          rid = rowid[static_cast<size_t>(cids[qi * p + bi / B]) * B + bi % B];
+        }
+        out_d[qi * k + t] = bd;
+        out_r[qi * k + t] = rid;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// B2: one block per (probe rank, query).  grid (p, Q), block kPoolThreads,
+// dynamic shared memory D floats.  out[q, r*B + j] scores row j of bucket
+// cids[q, r]; INF past the live prefix and on tombstones.
+template <typename T, bool PACKED>
+__global__ void __launch_bounds__(kPoolThreads)
+    pool_scan_kernel(const T* __restrict__ vectors, const float* __restrict__ scales,
+                     const int32_t* __restrict__ rowid, const float* __restrict__ queries,
+                     const float* __restrict__ qsq, const int32_t* __restrict__ cids,
+                     const int32_t* __restrict__ nsb, int B, int D, int dw, int n4, int p,
+                     int space, int scaled, float* __restrict__ out) {
+  extern __shared__ float qs[];
+  const int r = blockIdx.x, qi = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  stage_query<T, PACKED>(queries + static_cast<size_t>(qi) * D, qs, dw, n4);
+  __syncthreads();
+
+  const int c = cids[qi * p + r];
+  const int live = min(nsb[c] * kSubBlock, B);
+  float* o = out + (static_cast<size_t>(qi) * p + r) * B;
+  for (int j = live + threadIdx.x; j < B; j += blockDim.x) o[j] = CUDART_INF_F;
+  const float q2 = qsq[qi];
+  for (int j = warp; j < live; j += nwarps) {
+    const size_t slot = static_cast<size_t>(c) * B + j;
+    if (rowid[slot] == kSentinel) {
+      if (lane == 0) o[j] = CUDART_INF_F;
+      continue;
+    }
+    float dot = 0.0f, sq = 0.0f;
+    row_dot<T, PACKED>(vectors + slot * dw, qs, dw, n4, lane, dot, sq);
+    dot = warp_sum(dot);
+    sq = warp_sum(sq);
+    if (lane == 0) {
+      float s = scaled ? scales[slot] : 1.0f;
+      if (PACKED) s *= kInt4Scale;
+      o[j] = row_distance(dot, sq, s, q2, space);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem) {
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T>
+cudaError_t launch_fused(const void* vectors, const float* scales, const int32_t* rowid,
+                         const float* queries, const float* qsq, const int32_t* cids,
+                         const int32_t* nsb, int Q, int B, int D, int p, int k, int space,
+                         int scaled, int vec, float* out_d, int32_t* out_r,
+                         cudaStream_t stream) {
+  const int n4 = vec ? D / (16 / static_cast<int>(sizeof(T))) : 0;
+  const size_t smem = (static_cast<size_t>(D) + static_cast<size_t>(p) * B) * sizeof(float);
+  auto kern = search_fused_kernel<T>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<Q, kFusedThreads, smem, stream>>>(static_cast<const T*>(vectors), scales, rowid,
+                                           queries, qsq, cids, nsb, B, D, n4, p, k, space,
+                                           scaled, out_d, out_r);
+  return cudaGetLastError();
+}
+
+template <typename T, bool PACKED>
+cudaError_t launch_pool(const void* vectors, const float* scales, const int32_t* rowid,
+                        const float* queries, const float* qsq, const int32_t* cids,
+                        const int32_t* nsb, int Q, int B, int D, int p, int space, int scaled,
+                        int vec, float* out, cudaStream_t stream) {
+  const int dw = PACKED ? D / 2 : D;
+  const int n4 = vec ? dw / (16 / static_cast<int>(sizeof(T))) : 0;
+  const size_t smem = static_cast<size_t>(D) * sizeof(float);
+  auto kern = pool_scan_kernel<T, PACKED>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(p, Q), kPoolThreads, smem, stream>>>(static_cast<const T*>(vectors), scales,
+                                                   rowid, queries, qsq, cids, nsb, B, D, dw,
+                                                   n4, p, space, scaled, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 bfloat16, 2 int8 bank [K, B, D].  vec: rows may be
+// read with 16-byte loads (row bytes and base address multiples of 16).
+int ivf_search_fused(int dtype, const void* vectors, const float* scales, const int32_t* rowid,
+                     const float* queries, const float* qsq, const int32_t* cids,
+                     const int32_t* nsb, int Q, int B, int D, int p, int k, int space,
+                     int scaled, int vec, float* out_d, int32_t* out_r, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_fused<float>(vectors, scales, rowid, queries, qsq, cids, nsb, Q, B, D, p,
+                                 k, space, scaled, vec, out_d, out_r, st);
+    case kBF16:
+      return launch_fused<__nv_bfloat16>(vectors, scales, rowid, queries, qsq, cids, nsb, Q, B,
+                                         D, p, k, space, scaled, vec, out_d, out_r, st);
+    case kI8:
+      return launch_fused<int8_t>(vectors, scales, rowid, queries, qsq, cids, nsb, Q, B, D, p,
+                                  k, space, scaled, vec, out_d, out_r, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// dtype as above, or 3: packed int4 bank [K, B, D/2] uint8 (split layout).
+int ivf_pool_scan(int dtype, const void* vectors, const float* scales, const int32_t* rowid,
+                  const float* queries, const float* qsq, const int32_t* cids,
+                  const int32_t* nsb, int Q, int B, int D, int p, int space, int scaled,
+                  int vec, float* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_pool<float, false>(vectors, scales, rowid, queries, qsq, cids, nsb, Q, B, D,
+                                       p, space, scaled, vec, out, st);
+    case kBF16:
+      return launch_pool<__nv_bfloat16, false>(vectors, scales, rowid, queries, qsq, cids, nsb,
+                                               Q, B, D, p, space, scaled, vec, out, st);
+    case kI8:
+      return launch_pool<int8_t, false>(vectors, scales, rowid, queries, qsq, cids, nsb, Q, B,
+                                        D, p, space, scaled, vec, out, st);
+    case kPacked:
+      return launch_pool<uint8_t, true>(vectors, scales, rowid, queries, qsq, cids, nsb, Q, B,
+                                        D, p, space, scaled, vec, out, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"
