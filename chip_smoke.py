@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the probe-scan kernels from csrc/ with nvcc, then:
+Builds the kernels from csrc/ with nvcc (one process per source, in
+parallel), then:
 
   0. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions and the kernels' build time;
@@ -19,7 +20,24 @@ Builds the probe-scan kernels from csrc/ with nvcc, then:
   3. sends 512 limit-10 queries over HTTP with 64 in flight, checks
      recall@10 >= 0.90 against an exact f32 oracle on the card, sends 8
      limit-50 queries, checks that the HTTP path launched both kernels, and
-     times IvfIndex.search on 2,048 queries in one call.
+     times IvfIndex.search on 2,048 queries in one call;
+  4. holds the graph gather-score kernel B3 against its plain version on a
+     262,144 x 768 bank (f32, bf16, int8; cosine, dot, l2) at the search
+     shape (Q=256, BR=128) and the insert shape (Q=1,024, BR=512), with
+     repeated candidate ids, and times both with CUDA events;
+  5. serves a kind-"ann" (graph) index over HTTP: the route's default
+     dtype (bf16), cosine, capacity 131,072; bulk-loads 131,072 rows of the
+     bench corpus recipe through the engine handle plus 256 through
+     POST .../add, sends 512 limit-10 queries with 64 in flight and checks
+     recall@10 >= 0.90 against SlotIndex.exact_search on the same bank,
+     removes 1,000 keys and checks none comes back, compacts and checks
+     count and recall after the slot remap; B3 must launch during both
+     ingest and queries;
+  6. builds the graph at the JAX package's recorded geometry (131,072 x 768
+     f32, one add() in 1,024-row blocks), checks recall@10 >= 0.95 at ef 64
+     (the TPU record is 0.983), times ingest and SlotIndex.search on 2,048
+     queries, then rebuilds the centroid router (4,096 centroids) and
+     reports recall through routed entries.
 
 Any failed phase raises and the exit code is non-zero.  The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' record.
@@ -44,6 +62,12 @@ ADD_BATCH = 8192
 EXTRA_ROWS = 256
 N_HTTP, N_BATCH, IN_FLIGHT = 512, 2048, 64
 MIN_RECALL = 0.90
+# the graph: the recorded geometry's corpus, and the recall it must reach
+GIX = "graph"
+N_GRAPH = 131_072
+N_REMOVE = 1000
+MIN_RECALL_GEOMETRY = 0.95
+TPU_RECALL_GEOMETRY = 0.983  # BENCH_r05, graph ef=64 @ N=131072 (a TPU record)
 
 
 def log(msg: str) -> None:
@@ -244,9 +268,64 @@ def _oracle(torch, corpus, extra, queries, k, device):
     return best_i.cpu().numpy()
 
 
-def _recall(got: list, truth: np.ndarray) -> float:
-    k = truth.shape[1]
-    return float(np.mean([len(set(g) & set(t.tolist())) / k for g, t in zip(got, truth)]))
+def _recall(got: list, truth) -> float:
+    """Mean share of each truth row (ids or keys) found in `got`'s row."""
+    return float(np.mean([len(set(g) & set(t)) / len(t) for g, t in zip(got, truth)]))
+
+
+async def _put_index(http, base, body) -> None:
+    async with http.put(base, json=body) as r:
+        if r.status != 200:
+            raise AssertionError(f"PUT index: {r.status} {await r.text()}")
+
+
+async def _ingest(http, base, handle, corpus, extra) -> float:
+    """Bulk-load `corpus` through the handle and `extra` through POST add;
+    returns the seconds until /count reports every row."""
+    n = len(corpus)
+    t0 = time.perf_counter()
+    for off in range(0, n, ADD_BATCH):
+        end = min(off + ADD_BATCH, n)
+        await handle.add_or_replace_batch([((i,), corpus[i]) for i in range(off, end)])
+    for j, row in enumerate(extra):
+        payload = {"primary_key": [n + j], "embedding": row.tolist()}
+        async with http.post(base + "/add", json=payload) as r:
+            if r.status != 200:
+                raise AssertionError(f"POST add: {r.status} {await r.text()}")
+    await _wait_count(http, base, n + len(extra))
+    return time.perf_counter() - t0
+
+
+async def _wait_count(http, base, want: int) -> None:
+    deadline = time.perf_counter() + 900
+    while True:
+        async with http.get(base + "/count") as r:
+            count = await r.json()
+        if count == want:
+            return
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"count stuck at {count}, want {want}")
+        await asyncio.sleep(0.05)
+
+
+async def _http_ann(http, base, vecs, limit, lat=None) -> list:
+    """POST .../ann for every row of `vecs`, IN_FLIGHT at a time; returns
+    the pk0 column of each answer and appends latencies to `lat`."""
+    sem = asyncio.Semaphore(IN_FLIGHT)
+
+    async def ann(vec):
+        async with sem:
+            t = time.perf_counter()
+            payload = {"embedding": vec.tolist(), "limit": limit}
+            async with http.post(base + "/ann", json=payload) as r:
+                if r.status != 200:
+                    raise AssertionError(f"POST ann: {r.status} {await r.text()}")
+                res = await r.json()
+            if lat is not None:
+                lat.append(time.perf_counter() - t)
+            return res["primary_keys"]["pk0"]
+
+    return await asyncio.gather(*(ann(v) for v in vecs))
 
 
 async def phase_service(torch, n, device="cuda"):
@@ -266,10 +345,7 @@ async def phase_service(torch, n, device="cuda"):
     try:
         base = f"http://{server.addr}/api/v1/indexes/{KS}/{IX}"
         async with aiohttp.ClientSession() as http:
-            body = {"dimensions": DIM, "space": "cosine", "dtype": "int8", "kind": "ivf"}
-            async with http.put(base, json=body) as r:
-                if r.status != 200:
-                    raise AssertionError(f"PUT index: {r.status} {await r.text()}")
+            await _put_index(http, base, {"dimensions": DIM, "space": "cosine", "dtype": "int8", "kind": "ivf"})
             handle = await engine.get_index(IndexId.from_parts(KS, IX))
 
             # main path from here: count kernel launches of this run only
@@ -277,26 +353,8 @@ async def phase_service(torch, n, device="cuda"):
                 ivf_cuda.LAUNCHES[key] = 0
             if device == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for off in range(0, n, ADD_BATCH):
-                end = min(off + ADD_BATCH, n)
-                await handle.add_or_replace_batch([((i,), corpus[i]) for i in range(off, end)])
-            for j, row in enumerate(extra):
-                payload = {"primary_key": [n + j], "embedding": row.tolist()}
-                async with http.post(base + "/add", json=payload) as r:
-                    if r.status != 200:
-                        raise AssertionError(f"POST add: {r.status} {await r.text()}")
+            ingest_s = await _ingest(http, base, handle, corpus, extra)
             want = n + EXTRA_ROWS
-            deadline = time.perf_counter() + 900
-            while True:
-                async with http.get(base + "/count") as r:
-                    count = await r.json()
-                if count == want:
-                    break
-                if time.perf_counter() > deadline:
-                    raise AssertionError(f"count stuck at {count}, want {want}")
-                await asyncio.sleep(0.05)
-            ingest_s = time.perf_counter() - t0
             out["ingest_vec_s"] = want / ingest_s
             idx = handle.backend.index
             mem = torch.cuda.max_memory_allocated() if device == "cuda" else 0
@@ -305,22 +363,9 @@ async def phase_service(torch, n, device="cuda"):
                 f"peak device memory {mem / 2**30:.3f} GiB")
 
             # phase 3: queries over HTTP, 64 in flight
-            sem = asyncio.Semaphore(IN_FLIGHT)
             lat = []
-
-            async def ann(vec, limit):
-                async with sem:
-                    t = time.perf_counter()
-                    payload = {"embedding": vec.tolist(), "limit": limit}
-                    async with http.post(base + "/ann", json=payload) as r:
-                        if r.status != 200:
-                            raise AssertionError(f"POST ann: {r.status} {await r.text()}")
-                        res = await r.json()
-                    lat.append(time.perf_counter() - t)
-                    return res["primary_keys"]["pk0"]
-
             t0 = time.perf_counter()
-            got = await asyncio.gather(*(ann(v, 10) for v in queries[:N_HTTP]))
+            got = await _http_ann(http, base, queries[:N_HTTP], 10, lat)
             wall = time.perf_counter() - t0
             lat_ms = np.asarray(lat) * 1e3
             truth = _oracle(torch, corpus, extra, queries, 10, device)
@@ -334,7 +379,7 @@ async def phase_service(torch, n, device="cuda"):
                 raise AssertionError(f"recall@10 {out['recall_http']} < {MIN_RECALL}")
             fused_http = ivf_cuda.LAUNCHES["search_fused"]
 
-            big = await asyncio.gather(*(ann(v, 50) for v in queries[:8]))
+            big = await _http_ann(http, base, queries[:8], 50)
             if any(len(b) != 50 for b in big):
                 raise AssertionError("limit=50 queries returned short lists")
             out["launches"] = dict(ivf_cuda.LAUNCHES)
@@ -386,6 +431,214 @@ def reference_geometry(torch, corpus, queries, device, rpb=340, probes=2):
 
 
 # --------------------------------------------------------------------------
+# phases 4-6: the graph backend
+
+
+def phase_graph_kernels(torch, device="cuda", C=2 * N_GRAPH, D=DIM, shapes=None):
+    """B3 against its plain version on a [C, D] bank of unit-norm rows.
+    Returns (max |d err|, {(dtype, shape): (ms, plain_ms, GB/s)}).  The
+    tolerance is TOL for every space: l2 adds |q|^2 + |x|^2 terms near 1,
+    which f32 holds to ~1e-7."""
+    from vector_store_tpu_torch.core import graph_cuda as gc
+    from vector_store_tpu_torch.core.distance import normalize
+    from vector_store_tpu_torch.core.quantize import quantize_rows
+
+    shapes = shapes or {"search": (256, 128), "insert": (1024, 512)}
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rows = normalize(torch.randn((C, D), generator=gen, device=device))
+    cases = {}
+    for name, (Q, BR) in shapes.items():
+        q = normalize(torch.randn((Q, D), generator=gen, device=device))
+        cand = torch.randint(0, C, (Q, BR), generator=gen, device=device, dtype=torch.int32)
+        cand[:, BR - BR // 16 :] = cand[:, : BR // 16]  # repeated ids
+        cases[name] = (q, cand.contiguous())
+    err, timing = 0.0, {}
+    for dt in ("float32", "bfloat16", "int8"):
+        if dt == "int8":
+            vec, scl = quantize_rows(rows)
+        else:
+            vec, scl = rows.to(getattr(torch, dt)), torch.ones((C,), device=device)
+        for name, (q, cand) in cases.items():
+            for space in ("cosine", "dot", "l2"):
+                d_k = gc.gather_score_fused(vec, scl, q, cand, space)
+                d_p = gc.gather_score_plain(vec, scl, q, cand, space)
+                _sync(torch, device)
+                e = float((d_k - d_p).abs().max())
+                err = max(err, e)
+                log(f"  B3 {dt:8s} {name:6s} {space:6s}: max|d err| {e:.3e}")
+            Q, BR = cand.shape
+
+            def kern():
+                return gc.gather_score_fused(vec, scl, q, cand, "cosine")
+
+            def plain():
+                return gc.gather_score_plain(vec, scl, q, cand, "cosine")
+
+            p1 = _time_ms(torch, plain, 3)
+            k1 = _time_ms(torch, kern, 20)
+            k2 = _time_ms(torch, kern, 20)
+            p2 = _time_ms(torch, plain, 3)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            gbs = Q * BR * D * vec.element_size() / (ms * 1e-3) / 1e9
+            timing[(dt, name)] = (ms, plain_ms, gbs)
+            log(f"  B3 {dt:8s} {name:6s} cosine: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
+                f"({plain_ms / ms:.1f}x; {gbs:.1f} GB/s of rows read, Q={Q} BR={BR} D={D})")
+        del vec, scl
+    if err > TOL:
+        raise AssertionError(f"B3 disagrees with its plain version: max|d err| {err}")
+    del rows, cases
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return err, timing
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _slot_truth(backend, queries, k=10) -> list:
+    """Exact top-k keys (pk0) over the backend's live bank."""
+    _, slots = backend.index.exact_search(queries, k)
+    return [[backend.keymap.key_of(int(s))[0] for s in row if s >= 0] for row in slots]
+
+
+async def phase_graph_service(torch, n=N_GRAPH, device="cuda", n_remove=N_REMOVE):
+    """A kind-"ann" index over HTTP: ingest, queries, remove, compact."""
+    import aiohttp
+
+    from vector_store_tpu_torch import IndexId, new_index_factory, run
+    from vector_store_tpu_torch.core import graph_cuda
+
+    corpus = make_corpus(n, DIM)
+    extra = make_extra(corpus, EXTRA_ROWS)
+    queries = make_queries(corpus, N_HTTP)
+    server, engine = await run("127.0.0.1:0", new_index_factory(device=device))
+    out = {}
+    try:
+        base = f"http://{server.addr}/api/v1/indexes/{KS}/{GIX}"
+        async with aiohttp.ClientSession() as http:
+            # kind and dtype left to the route's defaults: "ann", bfloat16
+            await _put_index(http, base, {"dimensions": DIM, "space": "cosine", "capacity": n})
+            handle = await engine.get_index(IndexId.from_parts(KS, GIX))
+            backend = handle.backend
+            idx = backend.index
+            if type(idx).__name__ != "SlotIndex" or idx.cfg.dtype != "bfloat16":
+                raise AssertionError(f"PUT made {type(idx).__name__} {idx.cfg.dtype}")
+
+            # main path from here: B3 launches of this run only
+            graph_cuda.LAUNCHES["gather_score"] = 0
+            ingest_s = await _ingest(http, base, handle, corpus, extra)
+            want = n + len(extra)
+            out["ingest_vec_s"] = want / ingest_s
+            out["launches_ingest"] = graph_cuda.LAUNCHES["gather_score"]
+            log(f"  ingested {want} rows in {ingest_s:.2f} s: {out['ingest_vec_s']:.0f} vec/s; "
+                f"capacity {idx.capacity}, routing sample {idx.cfg.routing_sample}; "
+                f"B3 launches {out['launches_ingest']}")
+
+            graph_cuda.LAUNCHES["gather_score"] = 0
+            lat = []
+            t0 = time.perf_counter()
+            got = await _http_ann(http, base, queries, 10, lat)
+            wall = time.perf_counter() - t0
+            out["launches_query"] = graph_cuda.LAUNCHES["gather_score"]
+            lat_ms = np.asarray(lat) * 1e3
+            out["recall_http"] = _recall(got, _slot_truth(backend, queries))
+            out["p50_ms"], out["p99_ms"] = (float(np.percentile(lat_ms, s)) for s in (50, 99))
+            out["http_qps"] = len(queries) / wall
+            log(f"  HTTP ann limit=10 x {len(queries)}, {IN_FLIGHT} in flight: recall@10 "
+                f"{out['recall_http']:.4f} (vs exact_search, bf16 bank); p50 {out['p50_ms']:.2f} ms  "
+                f"p99 {out['p99_ms']:.2f} ms; {out['http_qps']:.1f} req/s; B3 launches "
+                f"{out['launches_query']}")
+            if device == "cuda" and not (out["launches_ingest"] > 0 and out["launches_query"] > 0):
+                raise AssertionError(f"B3 was not launched: {out}")
+
+            removed = set(range(0, n, max(n // n_remove, 1))[:n_remove])
+            sem = asyncio.Semaphore(IN_FLIGHT)
+
+            async def remove(key):
+                async with sem:
+                    async with http.post(base + "/remove", json={"primary_key": [key]}) as r:
+                        if r.status != 200:
+                            raise AssertionError(f"POST remove: {r.status} {await r.text()}")
+
+            await asyncio.gather(*(remove(k) for k in removed))
+            await _wait_count(http, base, want - len(removed))
+            for stage in ("removed", "compacted"):
+                if stage == "compacted":
+                    async with http.post(base + "/compact") as r:
+                        count = (await r.json())["count"]
+                    if count != want - len(removed) or idx.frontier != count:
+                        raise AssertionError(f"compact: count {count}, frontier {idx.frontier}")
+                got = await _http_ann(http, base, queries, 10)
+                back = sum(k in removed for g in got for k in g)
+                rec = _recall(got, _slot_truth(backend, queries))
+                out[f"recall_{stage}"] = rec
+                log(f"  after {len(removed)} removes{' + compact' if stage == 'compacted' else ''}: "
+                    f"recall@10 {rec:.4f}; removed keys returned: {back}")
+                if back:
+                    raise AssertionError(f"{back} removed keys came back")
+            for key in ("recall_http", "recall_removed", "recall_compacted"):
+                if out[key] < MIN_RECALL:
+                    raise AssertionError(f"{key} {out[key]} < {MIN_RECALL}")
+    finally:
+        await server.close()
+        await engine.close()
+    return out
+
+
+def graph_geometry(torch, n=N_GRAPH, device="cuda"):
+    """The JAX package's recorded graph geometry (bench.py:991-998): f32,
+    cosine, one add() into an index sized for the corpus, insert blocks of
+    1,024, ef 64, k 10; then one router rebuild at route_k_for(n)."""
+    from vector_store_tpu_torch import IndexParams
+    from vector_store_tpu_torch.core import cluster
+    from vector_store_tpu_torch.core.index import SlotIndex
+
+    corpus = make_corpus(n, DIM)
+    queries = make_queries(corpus, N_BATCH)
+    idx = SlotIndex(
+        IndexParams(dimensions=DIM, space="cosine", capacity=n),
+        initial_capacity=n,
+        insert_block=1024,
+        device=device,
+    )
+    t0 = time.perf_counter()
+    idx.add(corpus)
+    _sync(torch, device)
+    add_s = time.perf_counter() - t0
+    _, truth = idx.exact_search(queries, 10)
+    idx.search(queries, 10)
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        _, ids = idx.search(queries, 10)
+        times.append(time.perf_counter() - t)
+    out = {
+        "add_vec_s": n / add_s,
+        "batch_qps": N_BATCH / float(np.median(times)),
+        "recall": _recall([r.tolist() for r in ids], truth),
+    }
+    log(f"  recorded geometry ({n} x {DIM} f32, one add, insert block 1024, capacity "
+        f"{idx.capacity}): add {out['add_vec_s']:.0f} vec/s; SlotIndex.search {N_BATCH} queries "
+        f"in one call {out['batch_qps']:.0f} QPS (median of 3); recall@10 at ef "
+        f"{idx.cfg.ef_search}: {out['recall']:.4f} (TPU record {TPU_RECALL_GEOMETRY})")
+    if out["recall"] < MIN_RECALL_GEOMETRY:
+        raise AssertionError(f"recall@10 {out['recall']} < {MIN_RECALL_GEOMETRY}")
+    k = cluster.route_k_for(idx.frontier)
+    t0 = time.perf_counter()
+    with idx._lock:  # a forced rebuild below ROUTE_MIN_ROWS
+        idx._rebuild_router_locked(idx.frontier, k)
+    _sync(torch, device)
+    build_s = time.perf_counter() - t0
+    _, ids = idx.search(queries, 10)
+    out["recall_routed"] = _recall([r.tolist() for r in ids], truth)
+    log(f"  router rebuilt with {k} centroids in {build_s:.2f} s; recall@10 through routed "
+        f"entries: {out['recall_routed']:.4f}")
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -425,6 +678,17 @@ def main() -> int:
 
     log(f"phase 2-3: service at N={n}")
     svc = asyncio.run(phase_service(torch, n))
+    torch.cuda.empty_cache()
+
+    log("phase 4: graph kernel B3 vs plain PyTorch at serving shapes")
+    b3_err, b3_timing = phase_graph_kernels(torch)
+
+    log(f"phase 5: graph (kind ann) service at N={N_GRAPH}")
+    gsvc = asyncio.run(phase_graph_service(torch))
+    torch.cuda.empty_cache()
+
+    log(f"phase 6: graph at the recorded geometry, N={N_GRAPH}")
+    graph_geometry(torch)
 
     kernels = [
         {
@@ -446,6 +710,17 @@ def main() -> int:
             "max_abs_err": report["pool_scan"]["err"],
             "ms": timing["pool_scan"][0],
             "plain_ms": timing["pool_scan"][1],
+        },
+        {
+            # times: bf16 bank (the route's default dtype), search shape
+            "name": "graph_gather_score",
+            "route": "cuda",
+            "source": "vector_store_tpu_torch/csrc/graph_gather.cu",
+            "replaces": "vector_store_tpu/core/graph_pallas.py:89",
+            "launches": gsvc["launches_ingest"] + gsvc["launches_query"],
+            "max_abs_err": b3_err,
+            "ms": b3_timing[("bfloat16", "search")][0],
+            "plain_ms": b3_timing[("bfloat16", "search")][1],
         },
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

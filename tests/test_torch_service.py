@@ -1,8 +1,9 @@
 """vector_store_tpu_torch over HTTP, in-process on the CPU device.
 
-The port's server, engine, actor and IVF index answer the ANN surface
-end to end; kinds that are not ported yet answer 400 with the kind named;
-and importing the port leaves jax out of the process.
+The port's server, engine, actor and its graph, exact and IVF indexes
+answer the ANN surface end to end; kind "text", not ported yet, answers
+400 with the kind named; and importing the port leaves jax out of the
+process.
 """
 
 import asyncio
@@ -83,12 +84,10 @@ async def test_ivf_int8_round_trip():
 async def test_unported_kinds_answer_400():
     c, engine = await _make_client()
     try:
-        for kind in ("ann", "exact", "text"):
-            r = await c.put(IX, json={"dimensions": 8, "kind": kind})
-            assert r.status == 400
-            assert repr(kind) in await r.text()
-        r = await c.put(IX, json={"dimensions": 8})  # default kind is the graph
-        assert r.status == 400 and "'ann'" in await r.text()
+        r = await c.put(IX, json={"dimensions": 8, "kind": "text"})
+        assert r.status == 400 and "'text'" in await r.text()
+        r = await c.put(IX, json={"dimensions": 8, "capacity": 0})
+        assert r.status == 400
         r = await c.put("/api/v1/text-search/articles")
         assert r.status == 400 and "'text'" in await r.text()
         r = await c.post("/api/v1/text-search/articles/search", json={"text": "x"})
@@ -99,7 +98,85 @@ async def test_unported_kinds_answer_400():
         assert r.status == 200
         assert (await (await c.get(IX)).json())["kind"] == "auto"
         r = await c.get("/api-docs/openapi.json")
-        assert (await r.json())["paths"]
+        spec = await r.json()
+        put = spec["paths"]["/api/v1/indexes/{keyspace}/{index}"]["put"]
+        kinds = put["requestBody"]["content"]["application/json"]["schema"]["properties"]["kind"]
+        assert kinds["enum"] == ["ann", "exact", "ivf", "auto"]
+    finally:
+        await c.close()
+        await engine.close()
+
+
+async def _serve_round_trip(c, body):
+    """PUT with `body`, add 60 rows, check self-lookups over /ann."""
+    r = await c.put(IX, json=body)
+    assert r.status == 200, await r.text()
+    x = np.random.default_rng(1).normal(size=(60, 16)).astype(np.float32)
+    for i, v in enumerate(x):
+        r = await c.post(IX + "/add", json={"primary_key": [i], "embedding": v.tolist()})
+        assert r.status == 200
+    await _count(c, 60)
+    for i in (0, 31, 59):
+        r = await c.post(IX + "/ann", json={"embedding": x[i].tolist(), "limit": 5})
+        body = await r.json()
+        assert body["primary_keys"]["pk0"][0] == i
+        assert body["distances"] == sorted(body["distances"])
+    info = await (await c.get(IX)).json()
+    assert info["count"] == 60
+    return info
+
+
+@pytest.mark.asyncio
+@pytest.mark.parametrize(
+    "body, kind",
+    [
+        ({"dimensions": 16}, "ann"),
+        ({"dimensions": 16, "kind": "exact", "dtype": "int8", "space": "l2"}, "exact"),
+        ({"dimensions": 16, "kind": "auto", "capacity": 150_000}, "auto"),
+    ],
+    ids=["default-kind-graph", "exact", "auto-below-200k"],
+)
+async def test_graph_and_exact_kinds_serve(body, kind):
+    c, engine = await _make_client()
+    try:
+        info = await _serve_round_trip(c, body)
+        assert info["kind"] == kind
+        handle = await engine.get_index(_ix_id())
+        assert type(handle.backend.index).__name__ == "SlotIndex"
+        assert handle.backend.index._exact == (kind == "exact")
+    finally:
+        await c.close()
+        await engine.close()
+
+
+def _ix_id():
+    from vector_store_tpu_torch import IndexId
+
+    return IndexId.from_parts("ks", "docs")
+
+
+@pytest.mark.asyncio
+async def test_graph_compact_remaps_keys():
+    """Compaction moves slots: every key still answers for itself, removed
+    keys never come back, and the count holds."""
+    c, engine = await _make_client()
+    try:
+        await _serve_round_trip(c, {"dimensions": 16, "dtype": "float32"})
+        x = np.random.default_rng(1).normal(size=(60, 16)).astype(np.float32)
+        for i in range(0, 60, 4):
+            r = await c.post(IX + "/remove", json={"primary_key": [i]})
+            assert r.status == 200
+        await _count(c, 45)
+        r = await c.post(IX + "/compact")
+        assert r.status == 200 and (await r.json())["count"] == 45
+        handle = await engine.get_index(_ix_id())
+        assert handle.backend.index.frontier == 45  # slots were renumbered
+        for i in range(60):
+            r = await c.post(IX + "/ann", json={"embedding": x[i].tolist(), "limit": 60})
+            keys = (await r.json())["primary_keys"]["pk0"]
+            assert len(keys) == 45 and not any(k % 4 == 0 for k in keys)
+            if i % 4:
+                assert keys[0] == i
     finally:
         await c.close()
         await engine.close()
@@ -108,7 +185,9 @@ async def test_unported_kinds_answer_400():
 def test_import_leaves_jax_out():
     code = (
         "import sys, vector_store_tpu_torch, vector_store_tpu_torch.api.server, "
-        "vector_store_tpu_torch.core.ivf, vector_store_tpu_torch.kernels.build; "
+        "vector_store_tpu_torch.core.ivf, vector_store_tpu_torch.core.index, "
+        "vector_store_tpu_torch.core.cluster, vector_store_tpu_torch.kernels.build; "
+        "vector_store_tpu_torch.new_index_factory(device='cpu'); "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

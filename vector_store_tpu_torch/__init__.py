@@ -1,16 +1,18 @@
-"""vector_store_tpu_torch — the IVF serving path of vector_store_tpu on
-PyTorch and CUDA.
+"""vector_store_tpu_torch — the ANN serving paths of vector_store_tpu on
+PyTorch and CUDA: kinds "ann" (the graph, the default), "exact" and "ivf".
 
 A second package beside the JAX one.  It imports torch and never jax: the
 domain types, configuration and the metrics and native helpers come from
 the jax-free modules `vector_store_tpu.types`, `.config`, `.utils.metrics`,
-`.utils.native` and `.utils.persistio`; the engine, API and IVF layers are
-this package's own.  The probe-scan kernels are hand-written CUDA for
-sm_90a (csrc/ivf_scan.cu), built with nvcc at first use.
+`.utils.native` and `.utils.persistio`; the engine, API, graph and IVF
+layers are this package's own.  The kernels are hand-written CUDA for
+sm_90a (csrc/: the IVF probe scans and the graph gather-score), built with
+nvcc at first use.
 
 Public surface (mirrors vector_store_tpu):
     run(addr, factory)           start engine + HTTP server
-    new_index_factory(device=)   factory serving kind "ivf" (and "auto")
+    new_index_factory(device=)   factory serving kinds "ann", "exact", "ivf"
+                                 (and "auto")
     wait_for_shutdown()          SIGINT/SIGTERM latch
 """
 
@@ -32,18 +34,19 @@ from vector_store_tpu.types import (  # noqa: F401
 def new_index_factory(
     max_batch: int = 256, window_s: float = 0.002, device: str = "cuda"
 ):
-    """Routing factory with the one ported backend, "ivf", on `device`.
-    kind "auto" resolves to "ivf" at the default 1M capacity."""
+    """Routing factory with the ported backends on `device`: "ann" (the
+    graph, the default kind), "exact" and "ivf".  kind "auto" resolves to
+    "ivf" at declared capacity >= 200k and to "ann" below."""
     from .engine.ann_index import AnnIndexFactory
     from .engine.factory import RoutingFactory
 
     return RoutingFactory(
         {
-            "ivf": AnnIndexFactory(
-                backend="ivf", max_batch=max_batch, window_s=window_s, device=device
+            kind: AnnIndexFactory(
+                backend=backend, max_batch=max_batch, window_s=window_s, device=device
             )
-        },
-        default="ivf",
+            for kind, backend in (("ann", "graph"), ("exact", "exact"), ("ivf", "ivf"))
+        }
     )
 
 
@@ -52,7 +55,8 @@ async def run(addr: str, index_factory=None):
 
     Turns TF32 matmuls off for the process: the IVF centroid route needs
     full float32 products of its bf16-rounded operands to probe the same
-    clusters as the JAX package (core/ivf_cuda.route checks the flag)."""
+    clusters as the JAX package (core/ivf_cuda.route checks the flag), and
+    the graph's routing and prune matmuls then match it too."""
     import torch
 
     from .api.server import serve

@@ -37,7 +37,7 @@ def openapi_spec() -> dict:
         "openapi": "3.0.3",
         "info": {
             "title": "vector-store-tpu (PyTorch/CUDA port)",
-            "description": "IVF vector search service on a CUDA device",
+            "description": "Vector search service (graph, exact and IVF indexes) on a CUDA device",
             "version": "0.1.0",
         },
         "tags": [{"name": "indexes", "description": "ANN (vector) index API"}],
@@ -52,7 +52,7 @@ def openapi_spec() -> dict:
             ix: {
                 "put": {
                     "tags": ["indexes"],
-                    "description": "Create an ANN index (kind ivf, or auto at capacity >= 200k)",
+                    "description": "Create an ANN index (kind ann, the graph, by default)",
                     "parameters": _index_params(),
                     "requestBody": _body(
                         ["dimensions"],
@@ -63,13 +63,21 @@ def openapi_spec() -> dict:
                                 "type": "string",
                                 "enum": ["float32", "bfloat16", "int8"],
                             },
-                            "kind": {"type": "string", "enum": ["ivf", "auto"]},
+                            "kind": {
+                                "type": "string",
+                                "enum": ["ann", "exact", "ivf", "auto"],
+                                "default": "ann",
+                            },
+                            "capacity": {
+                                "type": "integer",
+                                "description": "declared rows; kind auto picks ivf at >= 200000",
+                            },
                             "key_columns": {"type": "array", "items": {"type": "string"}},
                         },
                     ),
                     "responses": {
                         "200": {"description": "Created"},
-                        "400": {"description": "Bad parameters or a kind not yet ported"},
+                        "400": {"description": "Bad parameters or a kind not yet ported (text)"},
                     },
                 },
                 "get": {

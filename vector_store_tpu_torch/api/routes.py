@@ -1,4 +1,4 @@
-"""REST routes of the port: the ANN surface over IVF indexes.
+"""REST routes of the port: the ANN surface over graph, exact and IVF indexes.
 
 Counterpart of vector_store_tpu/api/routes.py:
     GET    /api/v1/indexes                       list ids
@@ -13,9 +13,10 @@ Counterpart of vector_store_tpu/api/routes.py:
     POST   /api/v1/indexes/{ks}/{idx}/compact    -> {count}
     GET    /healthz, /metrics, /api-docs/openapi.json
 
-Only kind "ivf" (and "auto" where it resolves to ivf) is ported.  A PUT
-for another kind, and every text-search route, answers 400 naming the
-kind.
+Kinds "ann" (the default), "exact", "ivf" and "auto" are served.  A PUT
+for kind "text", and every text-search route, answers 400 naming the kind.
+The PUT body may declare `capacity` (IndexParams.capacity), which sizes
+the index and decides kind "auto".
 """
 
 from __future__ import annotations
@@ -128,11 +129,14 @@ async def put_ann_index(request: web.Request) -> web.Response:
             expansion_search=int(body.get("expansion_search", 64)),
             space=body.get("space", "cosine"),
             dtype=body.get("dtype", "bfloat16"),
+            capacity=int(body.get("capacity", IndexParams.capacity)),
         )
     except KeyError:
         return _json_error(400, "missing required field: dimensions")
     except ValueError as exc:
         return _json_error(400, str(exc))
+    if params.capacity <= 0:
+        return _json_error(400, "capacity must be positive")
     kind = body.get("kind", "ann")
     if resolve_kind(kind, params) not in PORTED_KINDS:
         return _not_ported(resolve_kind(kind, params))

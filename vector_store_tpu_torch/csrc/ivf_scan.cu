@@ -17,7 +17,8 @@
 // bank (half that packed) -- against two flops per byte, far below the
 // H100's compute-to-bandwidth ratio.  The design keeps every other access
 // out of device memory:
-//   * one warp scores one bank row; each lane loads 16 bytes at a time, so
+//   * one warp scores one bank row (row_dot, scan_common.cuh); each lane
+//     loads 16 bytes at a time, so
 //     a warp streams 512 contiguous bytes per step;
 //   * the query is staged once per block in shared memory, transposed by
 //     16-byte chunk so that the 32 lanes of a warp read 32 consecutive
@@ -36,12 +37,12 @@
 // Neither kernel allocates: the caller passes every buffer.  Both launch on
 // the caller's stream and return cudaGetLastError() of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <climits>
 #include <cstdint>
+
+#include "scan_common.cuh"
 
 namespace {
 
@@ -49,89 +50,7 @@ constexpr int kSentinel = INT_MAX;  // "no row" id (vector_store_tpu core/topk.p
 constexpr int kSubBlock = 128;      // live-prefix granularity (ivf_pallas.SB)
 constexpr int kFusedThreads = 512;
 constexpr int kPoolThreads = 256;
-constexpr int kMaxSmem = 232448;    // opt-in shared memory per block on sm_90
 constexpr float kInt4Scale = 127.0f / 7.0f;
-enum Space { kCosine = 0, kDot = 1, kL2 = 2 };
-enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2, kPacked = 3 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
-// sign-extend a 4-bit code
-__device__ __forceinline__ float nibble(int v) { return static_cast<float>((v ^ 8) - 8); }
-
-// Stage one query [D] into shared memory in the layout row_dot reads.
-// A row of dw stored elements is n4 full 16-byte chunks of N = 16/sizeof(T)
-// elements, then a tail.  Element t of chunk c is read by lane c % 32, so its
-// query weight goes to qs[t * n4 + c]; tail elements keep their index.
-// Packed rows hold dims i and i + D/2 in byte i: the low dims fill
-// qs[0, N*n4), the high dims qs[N*n4, 2*N*n4), and tail byte i puts its
-// pair at qs[2i], qs[2i + 1].
-template <typename T, bool PACKED>
-__device__ void stage_query(const float* __restrict__ q, float* qs, int dw, int n4) {
-  constexpr int N = 16 / sizeof(T);
-  for (int i = threadIdx.x; i < dw; i += blockDim.x) {
-    const int c = i / N, t = i % N;
-    if constexpr (PACKED) {
-      if (c < n4) {
-        qs[t * n4 + c] = q[i];
-        qs[N * n4 + t * n4 + c] = q[i + dw];
-      } else {
-        qs[2 * i] = q[i];
-        qs[2 * i + 1] = q[i + dw];
-      }
-    } else {
-      qs[c < n4 ? t * n4 + c : i] = q[i];
-    }
-  }
-}
-
-// This lane's share of x.q and |x|^2 for one stored row.
-template <typename T, bool PACKED>
-__device__ __forceinline__ void row_dot(const T* __restrict__ row, const float* __restrict__ qs,
-                                        int dw, int n4, int lane, float& dot, float& sq) {
-  constexpr int N = 16 / sizeof(T);
-  const uint4* r4 = reinterpret_cast<const uint4*>(row);
-  for (int c = lane; c < n4; c += 32) {
-    const uint4 u = __ldg(r4 + c);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      if constexpr (PACKED) {
-        const int b = static_cast<int>(e[t]);
-        const float lo = nibble(b & 15), hi = nibble(b >> 4);
-        dot = fmaf(lo, qs[t * n4 + c], dot);
-        dot = fmaf(hi, qs[N * n4 + t * n4 + c], dot);
-        sq = fmaf(lo, lo, sq);
-        sq = fmaf(hi, hi, sq);
-      } else {
-        const float x = to_f(e[t]);
-        dot = fmaf(x, qs[t * n4 + c], dot);
-        sq = fmaf(x, x, sq);
-      }
-    }
-  }
-  for (int i = N * n4 + lane; i < dw; i += 32) {
-    if constexpr (PACKED) {
-      const int b = static_cast<int>(row[i]);
-      const float lo = nibble(b & 15), hi = nibble(b >> 4);
-      dot = fmaf(lo, qs[2 * i], dot);
-      dot = fmaf(hi, qs[2 * i + 1], dot);
-      sq = fmaf(lo, lo, sq);
-      sq = fmaf(hi, hi, sq);
-    } else {
-      const float x = to_f(row[i]);
-      dot = fmaf(x, qs[i], dot);
-      sq = fmaf(x, x, sq);
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Lexicographic (distance, position) minimum across the warp.
 __device__ __forceinline__ void warp_argmin(float& d, int& i) {
@@ -144,13 +63,6 @@ __device__ __forceinline__ void warp_argmin(float& d, int& i) {
       i = oi;
     }
   }
-}
-
-__device__ __forceinline__ float row_distance(float dot, float sq, float s, float q2, int space) {
-  dot = dot * s;
-  if (space == kL2) return q2 + sq * s * s - 2.0f * dot;
-  if (space == kDot) return -dot;
-  return 1.0f - dot;
 }
 
 // B1: one block per query.  grid (Q), block kFusedThreads,
@@ -266,14 +178,6 @@ __global__ void __launch_bounds__(kPoolThreads)
       o[j] = row_distance(dot, sq, s, q2, space);
     }
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, size_t smem) {
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 template <typename T>

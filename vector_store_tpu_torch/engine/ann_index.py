@@ -1,10 +1,11 @@
-"""ANN index backend: the per-index actor over an IVF index on a torch device.
+"""ANN index backend: the per-index actor over a graph, exact or IVF index
+on a torch device.
 
-Counterpart of vector_store_tpu/engine/ann_index.py, IVF branch only: the
-graph, exact and sharded backends are still to port, and asking for one
-raises ValueError.  Queries go through a MicroBatcher that coalesces
-concurrent Ann requests into one device batch; consecutive AddOrReplace /
-Remove messages in the mailbox are applied as one batched insert/delete.
+Counterpart of vector_store_tpu/engine/ann_index.py on one device (the
+sharded backends are still to port).  Queries go through a MicroBatcher
+that coalesces concurrent Ann requests into one device batch; consecutive
+AddOrReplace / Remove messages in the mailbox are applied as one batched
+insert/delete.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 from vector_store_tpu.types import IndexId, IndexMetadata, IndexParams, PrimaryKey
 from vector_store_tpu.utils import metrics
 
+from ..core.index import SlotIndex
 from ..core.ivf import IvfIndex
 from .actor import (
     Add,
@@ -58,8 +60,12 @@ class _RemoveRun:
     keys: list
 
 
+BACKENDS = ("graph", "exact", "ivf")
+
+
 class AnnIndexBackend:
-    """Message processor for one IVF index."""
+    """Message processor for one index: `backend` "graph" (kind ann),
+    "exact" or "ivf"."""
 
     def __init__(
         self,
@@ -67,22 +73,25 @@ class AnnIndexBackend:
         params: IndexParams,
         max_batch: int = 256,
         window_s: float = 0.002,
-        backend: str = "ivf",
+        backend: str = "graph",
         reserve_rows: int = 0,
         device: str = "cuda",
     ) -> None:
-        if backend != "ivf":
-            raise ValueError(f"kind {backend!r} not yet ported")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
         self.index_id = index_id
         self.params = params
-        # reserve_rows: bulk-load hint, sizes the clustering and the staging
-        # bank for the expected final row count (core/ivf.py)
-        self.index = IvfIndex(
-            params,
-            reserve_rows=reserve_rows,
-            initial_capacity=reserve_rows or None,
-            device=device,
-        )
+        if backend == "ivf":
+            # reserve_rows: bulk-load hint, sizes the clustering and the
+            # staging bank for the expected final row count (core/ivf.py)
+            self.index = IvfIndex(
+                params,
+                reserve_rows=reserve_rows,
+                initial_capacity=reserve_rows or None,
+                device=device,
+            )
+        else:
+            self.index = SlotIndex(params, exact=backend == "exact", device=device)
         self.keymap = KeyMap()
         self._batcher = MicroBatcher(
             self._run_query_batch, max_batch=max_batch, window_s=window_s
@@ -90,7 +99,8 @@ class AnnIndexBackend:
         self._loop = asyncio.get_running_loop()
         self._inflight: set[asyncio.Task] = set()
         # pairs the index state with its keymap between the query flush
-        # threads and any keymap swap
+        # threads and the compaction swap: a query must never map new
+        # slots through the old keymap (or the reverse)
         self._serve_lock = threading.Lock()
 
     # -- device-side batch execution (worker thread) ----------------------
@@ -106,7 +116,7 @@ class AnnIndexBackend:
         # readback (fetch) runs outside it, so several flush threads keep
         # device batches in flight
         with self._serve_lock:
-            with metrics.timed("vst_ann_batch_seconds", backend="IvfIndex"):
+            with metrics.timed("vst_ann_batch_seconds", backend=type(self.index).__name__):
                 fetch = self.index.search_dispatch(queries, k_max)
                 keymap = self.keymap
         dist, slots = fetch()
@@ -240,16 +250,33 @@ class AnnIndexBackend:
         elif isinstance(msg, Count):
             msg.reply.set_result(self.index.count())
         elif isinstance(msg, Compact):
-            # id-stable backend: compact() reclusters under the index's
-            # own lock and returns {}, the keymap is untouched
-            remap = await self._loop.run_in_executor(None, self.index.compact)
-            if remap:
-                raise RuntimeError("id-stable backend returned a remap")
+            if isinstance(self.index, SlotIndex):
+                await self._compact_slots()
+            else:
+                # id-stable backend (IVF): compact() reclusters under the
+                # index's own lock and returns {}, the keymap is untouched
+                remap = await self._loop.run_in_executor(None, self.index.compact)
+                if remap:
+                    raise RuntimeError("id-stable backend returned a remap")
             msg.reply.set_result(self.index.count())
         elif isinstance(msg, (Add, Search)):
             raise TypeError("ANN index does not serve the text protocol")
         else:
             raise TypeError(f"unknown message {msg!r}")
+
+    async def _compact_slots(self) -> None:
+        """Slot-moving compaction (graph/exact): rebuild offline in the
+        executor while queries keep serving the old (state, keymap) pair,
+        then swap the state and a new keymap in one serve-lock section."""
+        scratch, remap = await self._loop.run_in_executor(None, self.index.compact_prepare)
+        new_keymap = KeyMap()
+        for old, new in remap.items():
+            key = self.keymap.key_of(old)
+            if key is not None:
+                new_keymap.bind(key, new)
+        with self._serve_lock:
+            self.index.compact_install(scratch)
+            self.keymap = new_keymap
 
     async def _answer_ann(self, emb: np.ndarray, msg: Ann) -> None:
         try:
@@ -267,14 +294,14 @@ class AnnIndexBackend:
 
 
 class AnnIndexFactory:
-    """Factory producing IVF index actors on `device`."""
+    """Factory producing index actors of one backend on `device`."""
 
     def __init__(
         self,
         default_params: Optional[IndexParams] = None,
         max_batch: int = 256,
         window_s: float = 0.002,
-        backend: str = "ivf",
+        backend: str = "graph",
         reserve_rows: int = 0,
         device: str = "cuda",
     ) -> None:

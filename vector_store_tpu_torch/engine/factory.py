@@ -27,9 +27,8 @@ class IndexFactory(Protocol):
 # in ARCHITECTURE.md "Backend crossover"; not re-measured on the port)
 AUTO_IVF_MIN_CAPACITY = 200_000
 
-# Index kinds this package serves; the others ("ann", "exact", "text")
-# are still to port.
-PORTED_KINDS = ("ivf",)
+# Index kinds this package serves; "text" is still to port.
+PORTED_KINDS = ("ann", "exact", "ivf")
 
 
 def resolve_kind(kind: str, params) -> str:

@@ -1,8 +1,10 @@
 """Build and load the CUDA kernels of csrc/ at first use.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds, not minutes).  The library lands in vector_store_tpu_torch/_build/
+Each source compiles with its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface,
+loaded with ctypes (no PyTorch headers, so a build takes seconds, not
+minutes).  Headers (*.cuh) are included by the sources and
+count in the hash below.  The library lands in vector_store_tpu_torch/_build/
 under a name that carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the existing file.  A failed
 build raises with nvcc's output.
@@ -26,7 +28,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -48,6 +49,9 @@ _SIGNATURES = {
     # dtype, vectors, scales, rowid, queries, qsq, cids, nsb,
     # Q, B, D, p, space, scaled, vec, out, stream
     "ivf_pool_scan": [_I] + [_P] * 7 + [_I] * 7 + [_P] * 2,
+    # dtype, vectors, scales, queries, cand,
+    # Q, BR, C, D, space, scaled, vec, out, stream
+    "graph_gather_score": [_I] + [_P] * 4 + [_I] * 7 + [_P] * 2,
 }
 
 
@@ -67,7 +71,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -76,16 +80,28 @@ def _digest(sources: list[Path]) -> str:
 def _compile(sources: list[Path], out: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for cmd, proc, text in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:
