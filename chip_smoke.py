@@ -13,6 +13,10 @@ parallel), then:
      banks; cosine, dot and l2; B1 at k=10 and 32, B2 also over the packed
      int4 bank), with a tenth of the rows tombstoned and short live
      prefixes, and times both with CUDA events;
+ 1b. grows a bucket to 4,096 rows by skewed ingest (65,536 rows, then
+     10,000 near-copies of one) and checks that IvfIndex.search, whose B1
+     pool would no longer fit shared memory, answers through B2 alone, as
+     B1's plain version would;
   2. serves an int8 IVF index over HTTP (in-process server on 127.0.0.1),
      bulk-loads N rows of the bench corpus recipe (default 1,000,000 x 768;
      VST_SMOKE_N lowers it for local runs) through the engine handle in
@@ -37,7 +41,21 @@ parallel), then:
      f32, one add() in 1,024-row blocks), checks recall@10 >= 0.95 at ef 64
      (the TPU record is 0.983), times ingest and SlotIndex.search on 2,048
      queries, then rebuilds the centroid router (4,096 centroids) and
-     reports recall through routed entries.
+     reports recall through routed entries;
+  7. holds B1's qi8, bf16 and stub score modes against their plain versions
+     at phase 1's shapes (int8; cosine and dot; k 10 and 32) and times them,
+     then times B1 (f32) and B2 at Q=256, p=16 on the bench-geometry index
+     of phase 3 (rows per bucket 340; an int8 bank of over 1 GiB) and takes
+     recall@10 of each mode on it (probes 2, 2,048 queries);
+  8. on that index: derive_coarse's time, the two-stage scan's recall@10
+     and batch QPS at probes 2 and 4 beside the single-stage scan's (B2
+     packed must launch), then a save -> load round trip in a temporary
+     directory whose loaded index must return the same ids;
+  9. holds the copy-rate probe B4 against its plain version on a small
+     bank, measures its GB/s over a >= 1 GiB bank at blocks of 128, 384,
+     768 and 1,536 rows, score on and off, and prints B1's and B2's GB/s
+     of rows read on the bench-geometry index (phase 7) as a share of B4's
+     score-on rate and of its copy rate at 128 rows.
 
 Any failed phase raises and the exit code is non-zero.  The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' record.
@@ -158,13 +176,24 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
+def _turns_ms(torch, kern, plain, k_reps, p_reps):
+    """(kernel ms, plain ms), timed in the turns plain, kernel, kernel,
+    plain, so that a drift of the card's clocks falls on both."""
+    p1 = _time_ms(torch, plain, p_reps)
+    k1 = _time_ms(torch, kern, k_reps)
+    k2 = _time_ms(torch, kern, k_reps)
+    p2 = _time_ms(torch, plain, p_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _scan_case(torch, gen, Q, p, B, D, K, device):
+    """(masked rowids, live-prefix sub-blocks, queries, probed clusters,
+    live rows read) of a synthetic K-bucket bank: a tenth of the rows
+    tombstoned, every 8th bucket with a short live prefix."""
     from vector_store_tpu_torch.core import ivf_cuda as ic
     from vector_store_tpu_torch.core.distance import normalize
-    from vector_store_tpu_torch.core.quantize import pack_int4_from_int8
-    from vector_store_tpu_torch.core.topk import SENTINEL, topk_ascending_stable
+    from vector_store_tpu_torch.core.topk import SENTINEL
 
-    gen = torch.Generator(device=device).manual_seed(SEED)
     rowid = torch.arange(K * B, dtype=torch.int32, device=device).reshape(K, B)
     dead = torch.rand((K, B), generator=gen, device=device) < 0.1
     # every 8th bucket keeps only a short live prefix
@@ -180,7 +209,16 @@ def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
     # rows the kernels read: the live ones (tombstones and slots past the
     # live prefix are skipped without touching the bank)
     rows_read = (rid != SENTINEL).sum(dim=1)[cids.long()].sum().item()
+    return rid, nsb, q, cids, rows_read
 
+
+def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.core.quantize import pack_int4_from_int8
+    from vector_store_tpu_torch.core.topk import topk_ascending_stable
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rid, nsb, q, cids, rows_read = _scan_case(torch, gen, Q, p, B, D, K, device)
     report = {"search_fused": {"err": 0.0, "agree": 1.0}, "pool_scan": {"err": 0.0, "agree": 1.0}}
     timing = {}
     banks = {dt: _bank(torch, dt, K, B, D, gen, device) for dt in ("int8", "bfloat16", "float32")}
@@ -231,19 +269,64 @@ def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
         ),
     }
     for name, (kern, plain) in runs.items():
-        p1 = _time_ms(torch, plain, 3)
-        k1 = _time_ms(torch, kern, 50)
-        k2 = _time_ms(torch, kern, 50)
-        p2 = _time_ms(torch, plain, 3)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        ms, plain_ms = _turns_ms(torch, kern, plain, 50, 3)
         gbs = rows_read * D / (ms * 1e-3) / 1e9
-        timing[name] = (ms, plain_ms)
+        timing[name] = (ms, plain_ms, gbs)
         log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"({plain_ms / ms:.1f}x; {rows_read} live int8 rows read, {gbs:.1f} GB/s; "
             f"Q={Q} p={p} B={B} D={D})")
     del banks
     torch.cuda.empty_cache()
     return report, timing
+
+
+def big_bucket(torch, device="cuda", n=65_536, m=10_000):
+    """A bucket grown past B1's limit by skewed ingest: n corpus rows (one
+    recluster), then m near-copies of one row, which fill its first-choice
+    clusters until the bucket doubles to 4,096 rows.  At 16 probes B1's pool
+    needs (768 + 16 x 4,096) x 4 bytes of shared memory, over the 232,448 a
+    block may have, so IvfIndex.search must answer through B2."""
+    from vector_store_tpu_torch import IndexParams
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.core.ivf import IvfIndex, scan_path
+
+    corpus = make_corpus(n, DIM)
+    rng = np.random.default_rng([SEED, 3])
+    skew = corpus[0] + 0.01 * rng.standard_normal((m, DIM), dtype=np.float32)
+    idx = IvfIndex(IndexParams(dimensions=DIM, space="cosine", dtype="int8"), device=device)
+    idx.add(corpus)
+    idx.add(skew)
+    B = idx.state.bucket
+    path = scan_path(10, idx.probes, idx.n_clusters, B, DIM)
+    if B < 4096 or path != "pool":
+        raise AssertionError(f"skewed ingest left bucket {B} (path {path}); want >= 4096, pool")
+    queries = np.concatenate([corpus[:256], skew[:256]])
+    for key in ic.LAUNCHES:
+        ic.LAUNCHES[key] = 0
+    d, ids = idx.search(queries, 10)
+    launches = dict(ic.LAUNCHES)
+    # what B1 would answer if its pool fitted: its plain version, same route
+    st = idx.state
+    qf, cids, _ = ic.route(st, torch.as_tensor(queries, device=device), "cosine", idx.probes)
+    rid_masked, nsb = ic.scan_masks(st)
+    d_ref, r_ref = ic.search_fused_plain(st.vectors, st.scales, rid_masked, qf, cids, "cosine", 11, nsb)
+    _sync(torch, device)
+    err, agree, n_sep = _compare_topk(
+        torch, torch.as_tensor(d, device=device), torch.as_tensor(ids, device=device),
+        d_ref, r_ref.long(), 10,
+    )
+    log(f"  bucket {B} x {idx.n_clusters} clusters after {m} skewed rows: search of "
+        f"{len(queries)} queries at {idx.probes} probes took path {path!r}, launches "
+        f"{launches}; vs B1's plain version: max|d err| {err:.3e}, ids agree {agree:.4f} "
+        f"on {n_sep} separated")
+    if not (launches["pool_scan"] > 0 and launches["search_fused"] == 0):
+        raise AssertionError(f"the big bucket did not go through B2 alone: {launches}")
+    # corpus rows find themselves (row 0 excepted: 10,000 near-copies surround it)
+    if err > TOL or agree < 1.0 or not (ids[1:256, 0] == np.arange(1, 256)).all():
+        raise AssertionError(f"big-bucket search disagrees with B1's plain version: {err} {agree}")
+    del idx
+    torch.cuda.empty_cache()
+    return {"bucket": B, "err": err, "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -401,14 +484,15 @@ async def phase_service(torch, n, device="cuda"):
     finally:
         await server.close()
         await engine.close()
-    out["bench_geometry"] = reference_geometry(torch, corpus, queries, device)
-    return out
+    out["bench_geometry"], geo_idx, geo_truth = reference_geometry(torch, corpus, queries, device)
+    return out, (geo_idx, queries, geo_truth)
 
 
 def reference_geometry(torch, corpus, queries, device, rpb=340, probes=2):
     """Recall at the JAX package's recorded bench geometry: one add() into
     an index sized for the corpus (a single recluster over every row),
-    rows per bucket 340, probes 2."""
+    rows per bucket 340, probes 2.  Returns (numbers, the index, the exact
+    top-10 of `queries`): phases 7 and 8 measure on the same index."""
     from vector_store_tpu_torch import IndexParams
     from vector_store_tpu_torch.core.ivf import IvfIndex
 
@@ -427,7 +511,7 @@ def reference_geometry(torch, corpus, queries, device, rpb=340, probes=2):
     log(f"  bench geometry (one add, rows/bucket {rpb}, {idx.n_clusters} clusters x bucket "
         f"{idx.state.bucket}): add {len(corpus) / add_s:.0f} vec/s; "
         f"recall@10 at probes={probes}: {rec:.4f}")
-    return {"recall_p2": rec, "add_vec_s": len(corpus) / add_s}
+    return {"recall_p2": rec, "add_vec_s": len(corpus) / add_s}, idx, truth
 
 
 # --------------------------------------------------------------------------
@@ -474,11 +558,7 @@ def phase_graph_kernels(torch, device="cuda", C=2 * N_GRAPH, D=DIM, shapes=None)
             def plain():
                 return gc.gather_score_plain(vec, scl, q, cand, "cosine")
 
-            p1 = _time_ms(torch, plain, 3)
-            k1 = _time_ms(torch, kern, 20)
-            k2 = _time_ms(torch, kern, 20)
-            p2 = _time_ms(torch, plain, 3)
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            ms, plain_ms = _turns_ms(torch, kern, plain, 20, 3)
             gbs = Q * BR * D * vec.element_size() / (ms * 1e-3) / 1e9
             timing[(dt, name)] = (ms, plain_ms, gbs)
             log(f"  B3 {dt:8s} {name:6s} cosine: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
@@ -639,6 +719,229 @@ def graph_geometry(torch, n=N_GRAPH, device="cuda"):
 
 
 # --------------------------------------------------------------------------
+# phases 7-9: the IVF measurement path
+
+
+MODES = ("qi8", "bf16", "stub")
+# qi8: integer dots and one f32 product chain, as in the plain version;
+# bf16: exact products summed in another order; stub: one product
+MODE_TOL = {"qi8": 1e-6, "bf16": TOL, "stub": TOL}
+
+
+def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
+    """B1's qi8, bf16 and stub modes against their plain versions at phase
+    1's shapes on an int8 bank (cosine and dot; k 10 and 32), then each
+    mode's time (cosine, k 10; plain, kernel, kernel, plain)."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rid, nsb, q, cids, rows_read = _scan_case(torch, gen, Q, p, B, D, K, device)
+    vec, scl = _bank(torch, "int8", K, B, D, gen, device)
+    report = {}
+    for mode in MODES:
+        rep = report[mode] = {"err": 0.0, "agree": 1.0}
+        for space in ("cosine", "dot"):
+            for k in (10, 32):
+                d_k, r_k = ic.search_fused(vec, scl, rid, q, cids, space, k, nsb, mode)
+                d_p, r_p = ic.search_fused_plain(vec, scl, rid, q, cids, space, k + 1, nsb, mode)
+                torch.cuda.synchronize()
+                err, agree, n_sep = _compare_topk(torch, d_k, r_k, d_p, r_p, k)
+                log(f"  B1 {mode:4s} {space:6s} k={k:2d}: max|d err| {err:.3e}  "
+                    f"ids agree {agree:.4f} on {n_sep} separated")
+                rep["err"], rep["agree"] = max(rep["err"], err), min(rep["agree"], agree)
+        if rep["err"] > MODE_TOL[mode] or rep["agree"] < 1.0:
+            raise AssertionError(f"B1 {mode}: kernel disagrees with plain: {rep}")
+        rep["ms"], rep["plain_ms"] = _turns_ms(
+            torch,
+            lambda: ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb, mode),
+            lambda: ic.search_fused_plain(vec, scl, rid, q, cids, "cosine", 10, nsb, mode),
+            50,
+            3,
+        )
+        rep["gbs"] = rows_read * D / (rep["ms"] * 1e-3) / 1e9
+        log(f"  B1 {mode}: kernel {rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  "
+            f"({rep['plain_ms'] / rep['ms']:.1f}x; {rep['gbs']:.1f} GB/s of rows read, "
+            f"Q={Q} p={p} B={B} D={D})")
+    del vec, scl
+    torch.cuda.empty_cache()
+    return report
+
+
+def bench_rates(torch, geo, Q=256, p=16):
+    """B1 (f32) and B2 in GB/s of rows read on the bench-geometry index (an
+    int8 bank of over 1 GiB, far past the 50 MB L2) at phase 1's Q and p:
+    the first Q queries routed to their p clusters, cosine, k 10.  Rows read
+    are the live rows of the probed buckets, counted once per probe;
+    `distinct` is the share of them in distinct buckets (the rest may come
+    from L2).  These are the rates held against B4's in phase 9."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+
+    idx, queries, _ = geo
+    st = idx.state
+    rid, nsb = ic.scan_masks(st)
+    q, cids, p = ic.route(st, torch.as_tensor(queries[:Q], device=idx.device), "cosine", p)
+    live = st.valid.sum(dim=1)
+    rows_read = int(live[cids.long()].sum())
+    out = {
+        "bank_gib": st.vectors.numel() / 2**30,
+        "distinct": int(live[torch.unique(cids.long())].sum()) / rows_read,
+    }
+    runs = {
+        "search_fused": lambda: ic.search_fused(
+            st.vectors, st.scales, rid, q, cids, "cosine", 10, nsb),
+        "pool_scan": lambda: ic.pool_scan_fused(
+            st.vectors, st.scales, rid, q, cids, "cosine", False, nsb),
+    }
+    for name, fn in runs.items():
+        ms = _time_ms(torch, fn, 50)
+        out[name] = (ms, rows_read * DIM / (ms * 1e-3) / 1e9)
+        log(f"  {name} on the bench-geometry index ({out['bank_gib']:.3f} GiB), Q={Q} p={p}: "
+            f"{ms:.4f} ms, {out[name][1]:.1f} GB/s of rows read ({rows_read} rows, "
+            f"{out['distinct']:.3f} of them in distinct buckets)")
+    return out
+
+
+def modes_recall(torch, geo, probes=2):
+    """recall@10 of each B1 mode on the bench-geometry index (2,048 queries
+    in chunks of 256, the IvfIndex's chunk), the measurement path's run:
+    the per-mode launch counts are read from it alone."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.core.ivf import QCHUNK
+
+    idx, queries, truth = geo
+    st = idx.state
+    masks = ic.scan_masks(st)
+    for key in ic.SCORE_LAUNCHES:
+        ic.SCORE_LAUNCHES[key] = 0
+    recall = {}
+    for mode in MODES:
+        ids = []
+        for off in range(0, len(queries), QCHUNK):
+            q = torch.as_tensor(queries[off : off + QCHUNK], device=idx.device)
+            ids.append(ic.search_clustered_fused(st, q, "cosine", 10, probes, masks, mode)[1])
+        ids = torch.cat(ids).cpu().numpy()
+        recall[mode] = _recall([r.tolist() for r in ids], truth)
+    launches = dict(ic.SCORE_LAUNCHES)
+    log(f"  recall@10 at the bench geometry, probes {probes}: "
+        + ", ".join(f"{m} {recall[m]:.4f}" for m in MODES) + f"; launches {launches}")
+    if idx.device.type == "cuda" and any(launches[m] == 0 for m in MODES):
+        raise AssertionError(f"a B1 mode was not launched: {launches}")
+    return recall, launches
+
+
+def phase_two_stage(torch, geo, probes_list=(2, 4)):
+    """IvfIndex(coarse=True) semantics on the bench-geometry index: the
+    derive time, recall@10 and batch QPS (2,048 queries in one call, median
+    of 3) at each probe count beside the single-stage scan, B2 packed
+    launches; then a save -> load round trip in a temporary directory."""
+    import tempfile
+
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.core.ivf import IvfIndex, derive_coarse
+
+    idx, queries, truth = geo
+
+    def batch(p):
+        idx.search(queries, 10, probes=p)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            _, ids = idx.search(queries, 10, probes=p)
+            times.append(time.perf_counter() - t)
+        return N_BATCH / float(np.median(times)), _recall([r.tolist() for r in ids], truth)
+
+    out = {"single": {p: batch(p) for p in probes_list}}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    coarse = derive_coarse(idx.state.vectors)
+    end.record()
+    torch.cuda.synchronize()
+    out["derive_s"] = start.elapsed_time(end) / 1e3
+    log(f"  derive_coarse: {out['derive_s']:.3f} s for {coarse.numel() >> 20} MB of packed bank")
+    del coarse
+
+    # main path from here: the two-stage search's kernel launches
+    idx.coarse = True  # nothing mutates the index while it is switched
+    for key in ic.LAUNCHES:
+        ic.LAUNCHES[key] = 0
+    out["two"] = {p: batch(p) for p in probes_list}
+    out["launches"] = dict(ic.LAUNCHES)
+    for p in probes_list:
+        (qs, rs), (qt, rt) = out["single"][p], out["two"][p]
+        log(f"  probes {p}: two-stage recall@10 {rt:.4f} at {qt:.0f} QPS; single-stage "
+            f"{rs:.4f} at {qs:.0f} QPS (cand {max(idx.rescore * 10, 64)})")
+    log(f"  launches of the two-stage runs: {out['launches']}")
+    cuda = idx.device.type == "cuda"
+    if cuda and (out["launches"]["pool_scan"] == 0 or out["launches"]["search_fused"] != 0):
+        raise AssertionError(f"two-stage did not run B2 packed alone: {out['launches']}")
+    if out["two"][2][1] < out["single"][2][1] - 0.02:
+        raise AssertionError(f"two-stage recall {out['two'][2][1]} vs {out['single'][2][1]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ivf.npz")
+        t = time.perf_counter()
+        idx.save(path)
+        out["save_s"] = time.perf_counter() - t
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        back = IvfIndex.load(path, device=idx.device)
+        _sync(torch, idx.device.type)
+        out["load_s"] = time.perf_counter() - t
+        for coarse in (True, False):
+            idx.coarse = back.coarse = coarse
+            _, a = idx.search(queries, 10, probes=2)
+            _, b = back.search(queries, 10, probes=2)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"the loaded index answers differently (coarse={coarse})")
+        del back
+    idx.coarse = False
+    log(f"  snapshot round trip: save {out['save_s']:.2f} s, load {out['load_s']:.2f} s "
+        f"({size / 2**30:.3f} GiB npz); loaded index returns the same ids, two-stage and single")
+    return out
+
+
+def phase_copy_probe(torch, device="cuda"):
+    """B4 against its plain version on a small bank (2 groups of 64 blocks
+    of 384 x 768), then its GB/s over a >= 1 GiB bank at each block size,
+    score on and off (the measurement path: launches counted there), and
+    kernel vs plain time at B=128, score on."""
+    from vector_store_tpu_torch.probes import dma
+
+    q = dma.make_query(DIM, device)
+    small = dma.make_bank(2 * dma.GROUP * 384 * DIM, device, seed=2).view(-1, 384, DIM)
+    err = {"abs": 0.0, "rel": 0.0}
+    for score in (True, False):
+        got, want = dma.stream(q, small, score), dma.stream_plain(q, small, score)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err["abs"] = max(err["abs"], float(diff.max()))
+        err["rel"] = max(err["rel"], float((diff / want.abs().clamp(min=1e-30)).max()))
+        log(f"  B4 score={int(score)}: kernel {got[0, :2].tolist()} plain {want[0, :2].tolist()}")
+    if err["rel"] > 1e-4:
+        raise AssertionError(f"B4 disagrees with its plain version: {err}")
+    del small
+
+    flat = dma.make_bank(dma.bank_bytes(1 << 30, DIM), device)
+    dma.LAUNCHES["stream"] = 0
+    rows = dma.sweep(flat, q, reps=20)
+    launches = dma.LAUNCHES["stream"]
+    for r in rows:
+        log(f"  B4 B={r['B']:5d} score={int(r['score'])}: {r['gbs']:.1f} GB/s "
+            f"({r['ms']:.4f} ms per {flat.numel() / 2**30:.3f} GiB; slope {r['slope_gbs']:.1f} GB/s)")
+    bank = flat.view(-1, 128, DIM)
+    ms, plain_ms = _turns_ms(
+        torch, lambda: dma.stream(q, bank, True), lambda: dma.stream_plain(q, bank, True), 20, 2
+    )
+    del flat, bank
+    torch.cuda.empty_cache()
+    log(f"  B4 B=128 score=1: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms; max rel err "
+        f"{err['rel']:.3e} (abs {err['abs']:.3e}); launches {launches}")
+    if device == "cuda" and launches == 0:
+        raise AssertionError("B4 was not launched")
+    return {"rows": rows, "err": err, "launches": launches, "ms": ms, "plain_ms": plain_ms}
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -675,9 +978,11 @@ def main() -> int:
 
     log("phase 1: kernels vs plain PyTorch at serving shapes")
     report, timing = phase_kernels(torch)
+    log("phase 1b: a bucket grown to 4,096 rows is served through B2")
+    big_bucket(torch)
 
     log(f"phase 2-3: service at N={n}")
-    svc = asyncio.run(phase_service(torch, n))
+    svc, geo = asyncio.run(phase_service(torch, n))
     torch.cuda.empty_cache()
 
     log("phase 4: graph kernel B3 vs plain PyTorch at serving shapes")
@@ -689,6 +994,31 @@ def main() -> int:
 
     log(f"phase 6: graph at the recorded geometry, N={N_GRAPH}")
     graph_geometry(torch)
+    torch.cuda.empty_cache()
+
+    log("phase 7: B1's score modes vs plain PyTorch, and their recall at the bench geometry")
+    modes = phase_modes(torch)
+    rates = bench_rates(torch, geo)
+    mode_recall, mode_launches = modes_recall(torch, geo)
+    log(f"  f32 recall@10 at the same geometry: {svc['bench_geometry']['recall_p2']:.4f}; stub "
+        f"(B1's copy floor) {modes['stub']['ms']:.4f} ms = {modes['stub']['gbs']:.1f} GB/s of "
+        f"rows read vs f32 {timing['search_fused'][0]:.4f} ms = {timing['search_fused'][2]:.1f} GB/s")
+
+    log("phase 8: the two-stage scan and a snapshot round trip on the bench-geometry index")
+    phase_two_stage(torch, geo)
+    del geo
+    torch.cuda.empty_cache()
+
+    log("phase 9: copy-rate probe B4 vs plain PyTorch, and the roofline")
+    b4 = phase_copy_probe(torch)
+    roof = {sc: next(r["gbs"] for r in b4["rows"] if r["B"] == 128 and r["score"] == sc)
+            for sc in (True, False)}
+    for name, label in (("search_fused", "B1"), ("pool_scan", "B2")):
+        gbs = rates[name][1]
+        log(f"  {label} rows read on the bench-geometry index {gbs:.1f} GB/s = "
+            f"{gbs / roof[True]:.3f} of B4's score-on rate at B=128 ({roof[True]:.1f} GB/s), "
+            f"{gbs / roof[False]:.3f} of its copy rate ({roof[False]:.1f} GB/s); phase 1's "
+            f"synthetic bank {timing[name][2]:.1f} GB/s")
 
     kernels = [
         {
@@ -701,6 +1031,19 @@ def main() -> int:
             "ms": timing["search_fused"][0],
             "plain_ms": timing["search_fused"][1],
         },
+    ]
+    for mode in MODES:
+        kernels.append({
+            "name": f"ivf_search_fused[{mode}]",
+            "route": "cuda",
+            "source": "vector_store_tpu_torch/csrc/ivf_scan.cu",
+            "replaces": "vector_store_tpu/core/ivf_pallas.py:128",
+            "launches": mode_launches[mode],
+            "max_abs_err": modes[mode]["err"],
+            "ms": modes[mode]["ms"],
+            "plain_ms": modes[mode]["plain_ms"],
+        })
+    kernels += [
         {
             "name": "ivf_pool_scan",
             "route": "cuda",
@@ -721,6 +1064,17 @@ def main() -> int:
             "max_abs_err": b3_err,
             "ms": b3_timing[("bfloat16", "search")][0],
             "plain_ms": b3_timing[("bfloat16", "search")][1],
+        },
+        {
+            # times: B=128, score on, over the >= 1 GiB bank
+            "name": "copy_probe_stream",
+            "route": "cuda",
+            "source": "vector_store_tpu_torch/csrc/copy_probe.cu",
+            "replaces": "scripts/probe_dma.py:30",
+            "launches": b4["launches"],
+            "max_abs_err": b4["err"]["abs"],
+            "ms": b4["ms"],
+            "plain_ms": b4["plain_ms"],
         },
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

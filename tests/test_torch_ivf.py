@@ -201,3 +201,35 @@ def test_compact_keeps_ids_and_results():
     assert tx.count() == n and not tx._free
     _, got = tx.search(x[5000:5016], 1)
     assert (got[:, 0] == more[:16]).all()
+
+
+def test_scan_path_sends_pools_that_do_not_fit_to_b2():
+    """B1 keeps its [p*B] pool in shared memory; a batch whose pool does not
+    fit (a bucket grown past 3,584 rows at 16 probes, D=768) or whose k
+    exceeds FUSED_MAX_K goes to B2 + one top-k."""
+    assert tivf.scan_path(10, 16, 2816, 640, 768) == "fused"
+    assert tivf.scan_path(10, 16, 2816, 3584, 768) == "fused"  # exactly the limit
+    assert tivf.scan_path(10, 16, 2816, 4096, 768) == "pool"
+    assert tivf.scan_path(tivf.FUSED_MAX_K + 1, 2, 2816, 640, 768) == "pool"
+    assert tivf.scan_path(10, 64, 8, 4096, 768) == "fused"  # p = min(probes, K) = 8
+
+
+def test_search_takes_b2_when_b1_pool_does_not_fit(monkeypatch):
+    """The IvfIndex asks scan_path: with B1's pool over the shared-memory
+    limit the same query batch is served by B2 with the same answers."""
+    from vector_store_tpu_torch.core import ivf_cuda
+
+    _, tx, x, _ = _built("int8", "cosine")
+    d_b1, i_b1 = tx.search(x[:16], 10)
+    calls = []
+    for name in ("search_clustered_fused", "search_clustered_pool"):
+        fn = getattr(tivf, name)
+        monkeypatch.setattr(
+            tivf, name, lambda *a, _n=name, _f=fn, **kw: calls.append(_n) or _f(*a, **kw)
+        )
+    monkeypatch.setattr(ivf_cuda, "MAX_SMEM_BYTES", 4096)
+    d_b2, i_b2 = tx.search(x[:16], 10)
+    assert calls == ["search_clustered_pool"]
+    np.testing.assert_allclose(d_b2, d_b1, atol=1e-6)
+    assert (i_b2[:, 0] == i_b1[:, 0]).all()
+    assert _recall(i_b2, i_b1) >= 0.95

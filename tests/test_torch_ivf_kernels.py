@@ -120,6 +120,81 @@ def test_search_fused_matches_pallas(dtype, space):
     assert set(pr[fin].tolist()) <= live  # tombstones never surface
 
 
+@pytest.mark.parametrize(
+    "score,space,atol",
+    [
+        ("qi8", "cosine", 1e-6),  # integer dots: one f32 rounding, as on the TPU
+        ("qi8", "dot", 1e-6),
+        ("bf16", "cosine", 1e-5),  # exact products, f32 sums in another order
+        ("stub", "dot", 0.0),  # element 0 x scale: one product, equal
+    ],
+)
+def test_search_fused_score_modes_match_pallas(score, space, atol):
+    st, ts, q, cids = _case("int8")
+    rm, jq, jc, jnsb = _jax_inputs(st, q, cids)
+    k = 12
+    jd, jr = jpl.search_fused(
+        st.vectors, st.scales, rm, jq, jc, space, k, P,
+        quantized=True, interpret=True, nsb=jnsb, score=score,
+    )
+    jd, jr = np.asarray(jd), np.asarray(jr)
+    trm, tq, tc, tnsb = _port_inputs(ts, q, cids)
+    pd, pr = ivf_cuda.search_fused_plain(
+        ts.vectors, ts.scales, trm, tq, tc, space, k, tnsb, score
+    )
+    wd, wr = ivf_cuda.search_fused(
+        ts.vectors, ts.scales, trm, tq, tc, space, k, tnsb, score
+    )
+    assert torch.equal(pd, wd) and torch.equal(pr, wr)  # CPU wrapper = plain
+    pd, pr = pd.numpy(), pr.numpy()
+    assert (np.isinf(pd) == np.isinf(jd)).all()
+    fin = np.isfinite(jd)
+    np.testing.assert_allclose(pd[fin], jd[fin], atol=atol, rtol=0)
+    if score == "stub":  # ties go to the lowest pool position in both
+        np.testing.assert_array_equal(pr, jr)
+    else:
+        _ids_agree(jd, jr, pr)
+
+
+def test_qi8_query_codes_match_pallas_wrapper():
+    """The wrapper's per-query int8 codes and scales are ivf_pallas's
+    (ivf_pallas.py:454-459), half-to-even rounding included."""
+    _, ts, q, _ = _case("int8")
+    q = q.copy()
+    q[0, :3] = (1.0, -0.5, 0.25)  # 127 * 0.5 = 63.5 rounds to 64, 31.75 to 32
+    codes, qs = ivf_cuda.score_query(torch.from_numpy(q), ts.vectors, "cosine", "qi8")
+    jqs = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(q)), axis=1), 1e-30) / 127.0
+    jcodes = jnp.clip(jnp.round(jnp.asarray(q) / jqs[:, None]), -127, 127)
+    assert codes.dtype == torch.int8
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes).astype(np.int8))
+    np.testing.assert_array_equal(qs.numpy(), np.asarray(jqs))
+
+
+@pytest.mark.parametrize(
+    "score,dtype,space",
+    [("qi8", "int8", "l2"), ("bf16", "int8", "l2"), ("qi8", "float32", "cosine"),
+     ("bf16", "bfloat16", "dot")],
+)
+def test_score_modes_refuse_what_the_kernel_does_not_take(score, dtype, space):
+    """qi8 and bf16 need int8 rows and cosine or dot (ivf_pallas.py:450-451,
+    461-462), on every device; an unknown mode is refused too."""
+    _, ts, q, cids = _case(dtype)
+    trm, tq, tc, tnsb = _port_inputs(ts, q, cids)
+    with pytest.raises(ValueError, match="needs int8 rows"):
+        ivf_cuda.search_fused(ts.vectors, ts.scales, trm, tq, tc, space, 10, tnsb, score)
+    with pytest.raises(ValueError, match="unknown score"):
+        ivf_cuda.search_fused(ts.vectors, ts.scales, trm, tq, tc, space, 10, tnsb, "int4")
+
+
+def test_fused_smem_bound():
+    """B1 keeps (D + p*B) f32 in shared memory: 16 probes of a 3,584-row
+    bucket at D=768 is the largest that fits; 4,096 rows does not; the
+    stub mode's copy slots take 8.4 KB more."""
+    assert ivf_cuda.fused_fits(768, 16, 3584)
+    assert not ivf_cuda.fused_fits(768, 16, 4096)
+    assert ivf_cuda.fused_smem_bytes(768, 16, 640, "stub") == (768 + 16 * 640) * 4 + 528 * 16
+
+
 @pytest.mark.parametrize("packed,space", [(False, "l2"), (True, "cosine")])
 def test_pool_scan_matches_pallas(packed, space):
     st, ts, q, cids = _case("int8")
@@ -182,3 +257,4 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         ivf_cuda.pool_scan_fused(v, s, r, q, c, "cosine")
     assert ivf_cuda.LAUNCHES == {"search_fused": 0, "pool_scan": 0}
+    assert not any(ivf_cuda.SCORE_LAUNCHES.values())

@@ -6,8 +6,9 @@ domain types, configuration and the metrics and native helpers come from
 the jax-free modules `vector_store_tpu.types`, `.config`, `.utils.metrics`,
 `.utils.native` and `.utils.persistio`; the engine, API, graph and IVF
 layers are this package's own.  The kernels are hand-written CUDA for
-sm_90a (csrc/: the IVF probe scans and the graph gather-score), built with
-nvcc at first use.
+sm_90a (csrc/: the IVF probe scans, the graph gather-score and the
+copy-rate probe), built with nvcc at first use.  `probes/` holds the
+measurement modules run on the card (python -m vector_store_tpu_torch.probes.*).
 
 Public surface (mirrors vector_store_tpu):
     run(addr, factory)           start engine + HTTP server

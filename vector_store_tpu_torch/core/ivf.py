@@ -9,29 +9,46 @@ re-places every row without invalidating ids.  Deletes are tombstones;
 inserts append to bucket tails, spilling to the next-nearest cluster when
 full.
 
+With `coarse` (or VST_IVF_COARSE=1) an int8 index serves the two-stage
+scan: a derived int4 copy of the bank (`derive_coarse`, half the bytes)
+is scanned by B2's packed mode, and the best `cand` rows per query are
+rescored against their int8 rows (`search_two_stage`).  `save`/`load`
+write and read the JAX package's npz snapshot format.
+
 Differences from the JAX package, all by design:
-  * `place` and `unvalidate` update the bank tensors in place where JAX
-    rebuilt them through buffer donation;
-  * no fixed-shape padding of scatters, assigns or query batches (those
-    bounded XLA compiles; eager PyTorch has none);
+  * `place`, `unvalidate` and `update_coarse` update tensors in place where
+    JAX rebuilt them through buffer donation;
+  * no fixed-shape padding of scatters, assigns, query batches or coarse
+    repacks (those bounded XLA compiles; eager PyTorch has none);
   * top-k is exact `torch.topk` where JAX used `approx_min_k`;
+  * a query batch whose B1 pool does not fit shared memory (`scan_path`)
+    goes to B2 + one top-k, where the TPU kernel kept the pool in VMEM;
   * the device is explicit (`device=`) and nothing falls back to the CPU.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
 
 from vector_store_tpu.types import IndexParams
+from vector_store_tpu.utils.persistio import atomic_savez
 
-from .distance import normalize, pairwise, preprocess
-from .ivf_cuda import scan_masks, search_clustered_fused, search_clustered_pool
-from .quantize import quantize_rows
+from . import ivf_cuda
+from .distance import gathered, normalize, pairwise, preprocess
+from .ivf_cuda import (
+    pool_scan_fused,
+    route,
+    scan_masks,
+    search_clustered_fused,
+    search_clustered_pool,
+)
+from .quantize import pack_int4_from_int8, quantize_rows
 from .topk import INF, SENTINEL, topk_ascending
 
 # Rows accumulated (sequential buckets) before the first clustering.
@@ -58,6 +75,8 @@ LLOYD_ITERS = 2
 FLAT_SCAN_CLUSTERS = 128
 # Rows per add() step.
 ADD_CHUNK = 8192
+# Clusters repacked per derive_coarse step (bounds the unpack transient).
+COARSE_CHUNK = 128
 
 
 @dataclass
@@ -269,6 +288,87 @@ def permute_build(
 
 
 # --------------------------------------------------------------------------
+# two-stage scan: int4 coarse probe + int8 exact rescore
+
+
+def derive_coarse(vectors: torch.Tensor) -> torch.Tensor:
+    """[K, B, D] int8 bank -> nibble-packed [K, B, D/2] uint8, packed
+    COARSE_CHUNK clusters at a time (the f32 transient stays [CH, B, D])."""
+    K, B, D = vectors.shape
+    out = torch.empty((K, B, D // 2), dtype=torch.uint8, device=vectors.device)
+    for k0 in range(0, K, COARSE_CHUNK):
+        out[k0 : k0 + COARSE_CHUNK] = pack_int4_from_int8(vectors[k0 : k0 + COARSE_CHUNK])
+    return out
+
+
+def update_coarse(coarse: torch.Tensor, vectors: torch.Tensor, ks: torch.Tensor) -> None:
+    """Repack the touched clusters `ks` of the coarse bank, in place."""
+    coarse[ks] = pack_int4_from_int8(vectors[ks])
+
+
+def _rescore_flat(
+    state: IvfState,
+    q: torch.Tensor,  # [Q, D] preprocessed, compute dtype
+    bd: torch.Tensor,  # [Q, C] coarse distances (INF = masked)
+    bflat: torch.Tensor,  # [Q, C] flat bank slots (cluster * B + position)
+    space: str,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact rescore of the coarse survivors against their stored rows
+    (dequantized, rounded to the compute dtype as in the JAX package)."""
+    K, B, D = state.vectors.shape
+    safe = torch.clamp(bflat, 0, K * B - 1).long()
+    rows = state.vectors.reshape(K * B, D)[safe].float()  # [Q, C, D]
+    if state.vectors.dtype == torch.int8:
+        rows = rows * state.scales.reshape(K * B)[safe][..., None]
+    d = gathered(q, rows.to(state.centroids.dtype), space)
+    d = d.masked_fill(torch.isinf(bd), INF)
+    rid = state.rowid.reshape(K * B)[safe]
+    top_d, pos = topk_ascending(d, min(k, d.shape[1]))
+    top_r = torch.gather(rid, 1, pos)
+    top_r = torch.where(torch.isinf(top_d), SENTINEL, top_r)
+    return ivf_cuda._pad_k(top_d, top_r, k)
+
+
+def search_two_stage(
+    state: IvfState,
+    coarse: torch.Tensor,  # [K, B, D/2] uint8 derived bank
+    queries: torch.Tensor,  # [Q, D] raw f32
+    space: str,
+    k: int,
+    probes: int,
+    cand: int,
+    masks=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """int4 coarse probe-scan -> top-`cand` per query -> int8 rescore.
+
+    Same contract as the single-stage search.  The packed bank is scanned
+    by B2 (`pool_scan_fused(packed=True)`: the kernel on CUDA tensors, its
+    plain version on CPU ones).  The query is the one JAX's `_route`
+    returns, rounded to the centroid dtype, in both stages.  The
+    top-`cand` is exact where JAX took `approx_min_k` at p*B >= 16384."""
+    q, cids, p = route(state, queries, space, probes, rounded=True)
+    B = state.bucket
+    C = min(cand, p * B)
+    rid_masked, nsb = masks if masks is not None else scan_masks(state)
+    pool = pool_scan_fused(coarse, state.scales, rid_masked, q.float(), cids, space, True, nsb)
+    bd, pos = topk_ascending(pool, C)  # pool lane r*B + j: row j of cids[:, r]
+    bflat = torch.gather(cids, 1, pos // B).long() * B + pos % B
+    return _rescore_flat(state, q, bd, bflat, space, k)
+
+
+def scan_path(k: int, probes: int, n_clusters: int, bucket: int, dims: int) -> str:
+    """The kernel that serves a clustered single-stage query batch: "fused"
+    (B1, whose top-k is k argmin passes over a [p*B] pool in shared
+    memory) when k <= FUSED_MAX_K and that pool fits a block, else "pool"
+    (B2 + one torch.topk: any k, any bucket)."""
+    p = min(probes, n_clusters)
+    if k <= FUSED_MAX_K and ivf_cuda.fused_fits(dims, p, bucket):
+        return "fused"
+    return "pool"
+
+
+# --------------------------------------------------------------------------
 
 
 def plan_placement(
@@ -339,6 +439,8 @@ class IvfIndex:
         probes: int = PROBE_DEFAULT,
         cluster_min: int = CLUSTER_MIN_ROWS,
         rows_per_bucket: int | None = None,
+        coarse: bool | None = None,
+        rescore: int = 8,
         reserve_rows: int = 0,
         device: str | torch.device = "cuda",
     ) -> None:
@@ -348,6 +450,20 @@ class IvfIndex:
         self.dims = params.dimensions
         self.probes = probes
         self.device = torch.device(device)
+        # two-stage scan (int4 coarse + int8 rescore): an explicit argument
+        # wins, else VST_IVF_COARSE=1 opts in (=0 vetoes even the argument);
+        # int8 banks with even D only
+        env4 = os.environ.get("VST_IVF_COARSE")
+        if coarse is None:
+            coarse = env4 == "1"
+        elif env4 == "0":
+            coarse = False
+        self.coarse = bool(coarse) and self.dtype == "int8" and self.dims % 2 == 0
+        # rescored candidates per query: max(rescore * k, 64)
+        self.rescore = rescore
+        self._coarse_bank: torch.Tensor | None = None
+        self._coarse_stale = True
+        self._coarse_dirty: set[int] = set()
         self.cluster_min = cluster_min
         self.rows_per_bucket = rows_per_bucket or ROWS_PER_BUCKET
         # bulk-load mode: the first clustering sizes k and the bucket for
@@ -414,6 +530,8 @@ class IvfIndex:
         B = s.bucket
         self._valid_h = np.pad(self._valid_h, ((0, 0), (0, B)))
         self._rowid_h = np.pad(self._rowid_h, ((0, 0), (0, B)), constant_values=-1)
+        self._coarse_stale = True  # bank shape changed; re-derive
+        self._coarse_bank = None
 
     # -- mutation -----------------------------------------------------------
 
@@ -462,6 +580,15 @@ class IvfIndex:
         self._rowid_h[ks, poss] = rid
         self._loc[rid, 0] = ks
         self._loc[rid, 1] = poss
+        self._mark_coarse_dirty(ks)
+
+    def _mark_coarse_dirty(self, ks: np.ndarray) -> None:
+        """Clusters whose rows were written since the coarse bank was derived
+        (tombstones need no repack: the scan reads validity live).  Tracked
+        whenever a derived bank exists, so `coarse` may be switched on an
+        index between searches."""
+        if not self._coarse_stale:
+            self._coarse_dirty.update(int(c) for c in np.unique(ks))
 
     def _add_staging(self, blk, rid: np.ndarray) -> None:
         """Sequential fill before the first clustering, by per-cluster fill
@@ -628,6 +755,7 @@ class IvfIndex:
             # rows are stored preprocessed; preprocess is idempotent
             place(self._state, rows, ks_t[sl], poss_t[sl], rid_t[sl], self.space, self.dtype)
         unvalidate(self._state, self._idx(old_k), self._idx(old_p))
+        self._mark_coarse_dirty(ks)  # moved rows wrote new codes into ks
         self._valid_h[old_k, old_p] = False
         for k_, p_ in zip(old_k.tolist(), old_p.tolist()):
             self._free.setdefault(int(k_), []).append(int(p_))
@@ -698,8 +826,29 @@ class IvfIndex:
         self._dirty = {int(c) for c in np.unique(ks[spilled])}
         self._clustered = True
         self._clustered_at = self._n_live
+        self._coarse_stale = True  # whole bank permuted; re-derive
+        self._coarse_bank = None
 
     # -- query ----------------------------------------------------------------
+
+    def _refresh_coarse_locked(self) -> torch.Tensor:
+        """Bring the derived int4 bank up to date (under the lock, before a
+        two-stage search): a full derive after a shape change or recluster,
+        or when more than K/4 clusters are dirty; else repack the dirty
+        clusters in place."""
+        if self._coarse_bank is None or self._coarse_stale:
+            self._coarse_bank = derive_coarse(self._state.vectors)
+            self._coarse_stale = False
+            self._coarse_dirty.clear()
+            return self._coarse_bank
+        if self._coarse_dirty:
+            ks = sorted(self._coarse_dirty)
+            self._coarse_dirty.clear()
+            if len(ks) > self._state.n_clusters // 4:
+                self._coarse_bank = derive_coarse(self._state.vectors)
+            else:
+                update_coarse(self._coarse_bank, self._state.vectors, self._idx(ks))
+        return self._coarse_bank
 
     def search_dispatch(self, queries, k: int, probes: int | None = None):
         """Enqueue a batched query; returns fetch() -> (dist, rowids).
@@ -720,12 +869,24 @@ class IvfIndex:
         outs_d, outs_i = [], []
         with self._lock:
             state = self._state
-            masks = scan_masks(state) if self._clustered else None
+            clustered = self._clustered
+            masks = scan_masks(state) if clustered else None
+            two_stage = clustered and self.coarse
+            coarse_bank = self._refresh_coarse_locked() if two_stage else None
+            path = scan_path(k, probes, state.n_clusters, state.bucket, state.dims)
             for off in range(0, n, QCHUNK):
                 q = torch.as_tensor(queries[off : off + QCHUNK], device=self.device)
-                if not self._clustered:
+                if two_stage:
+                    cand = min(
+                        max(self.rescore * k, 64),
+                        min(probes, state.n_clusters) * state.bucket,
+                    )
+                    dd, ii = search_two_stage(
+                        state, coarse_bank, q, self.space, k, probes, cand, masks=masks
+                    )
+                elif not clustered:
                     dd, ii = search_flat(state, q, self.space, k)
-                elif k <= FUSED_MAX_K:
+                elif path == "fused":
                     dd, ii = search_clustered_fused(
                         state, q, self.space, k, probes, masks
                     )
@@ -751,3 +912,108 @@ class IvfIndex:
     ) -> tuple[np.ndarray, np.ndarray]:
         """(dist[n, k] ascending, rowids[n, k]); absent results (inf, -1)."""
         return self.search_dispatch(queries, k, probes)()
+
+    def exact_search(self, queries, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """Exact scan over the same bank (the recall oracle)."""
+        queries = np.asarray(queries, dtype=np.float32)
+        single = queries.ndim == 1
+        if single:
+            queries = queries[None, :]
+        with self._lock:
+            d, i = search_flat(
+                self._state, torch.as_tensor(queries, device=self.device), self.space, k
+            )
+        d = d.cpu().numpy()
+        i = i.cpu().numpy().astype(np.int64)
+        i[~np.isfinite(d)] = -1
+        if single:
+            return d[0], i[0]
+        return d, i
+
+    # -- persistence ----------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Snapshot the bucketed bank to one uncompressed npz, in the JAX
+        package's format (format 1, kind "ivf"; ivf.py:1509-1551): bf16
+        vectors travel as f32, centroids as f32.  The coarse bank is derived
+        data and is not saved."""
+        with self._lock:
+            meta = {
+                "format": 1,
+                "kind": "ivf",
+                "params": asdict(self.params),
+                "dtype": self.dtype,
+                "probes": self.probes,
+                "cluster_min": self.cluster_min,
+                "rows_per_bucket": self.rows_per_bucket,
+                "coarse": self.coarse,
+                "rescore": self.rescore,
+                "clustered": self._clustered,
+                "clustered_at": self._clustered_at,
+                "n_live": self._n_live,
+                "next_rowid": self._next_rowid,
+                "free": {str(c): v for c, v in self._free.items()},
+            }
+            arrays = state_to_numpy(self._state)  # bf16 widens exactly to f32
+            atomic_savez(
+                path,
+                n_used=self._n_used,
+                meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+                **arrays,
+            )
+
+    @classmethod
+    def load(cls, path: str, device: str | torch.device = "cuda") -> "IvfIndex":
+        """An index from a snapshot written by `save` or by the JAX package;
+        the host mirrors are rebuilt from the bank (ivf.py:1579-1595)."""
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["meta"]).decode())
+            if meta.get("kind") != "ivf":
+                raise ValueError("not an ivf snapshot")
+            if meta.get("format") != 1:
+                raise ValueError(f"unknown ivf snapshot format {meta.get('format')!r}")
+            idx = cls.__new__(cls)
+            idx.params = IndexParams(**meta["params"])
+            idx.space = idx.params.space
+            idx.dtype = meta["dtype"]
+            idx.dims = idx.params.dimensions
+            idx.probes = meta["probes"]
+            idx.device = torch.device(device)
+            idx.cluster_min = meta["cluster_min"]
+            idx.rows_per_bucket = meta.get("rows_per_bucket", ROWS_PER_BUCKET)
+            idx.coarse = (
+                meta.get("coarse", os.environ.get("VST_IVF_COARSE") == "1")
+                and idx.dtype == "int8"
+                and idx.dims % 2 == 0
+            )
+            idx.rescore = meta.get("rescore", 8)
+            idx._coarse_bank = None
+            idx._coarse_stale = True
+            idx._coarse_dirty = set()
+            idx._reserve = 0  # a load is not a bulk load
+            idx._clustered = meta["clustered"]
+            idx._clustered_at = meta["clustered_at"]
+            idx._n_live = meta["n_live"]
+            idx._next_rowid = meta["next_rowid"]
+            idx._free = {int(c): list(v) for c, v in meta["free"].items()}
+            idx._dirty = set()
+            idx._n_used = np.asarray(z["n_used"], dtype=np.int64)
+            valid = np.asarray(z["valid"])
+            rowid = np.asarray(z["rowid"])
+            idx._valid_h = valid.copy()
+            idx._rowid_h = np.where(valid, rowid.astype(np.int64), -1)
+            idx._loc = np.full((max(idx._next_rowid, 1), 2), -1, dtype=np.int64)
+            ks, poss = np.nonzero(valid)
+            live_ids = rowid[ks, poss].astype(np.int64)
+            idx._loc[live_ids, 0] = ks
+            idx._loc[live_ids, 1] = poss
+            idx._lock = threading.Lock()
+            dev = idx.device
+            idx._state = IvfState(
+                centroids=_from_numpy(z["centroids"], dev).to(_compute_dtype(idx.dtype)),
+                vectors=_from_numpy(z["vectors"], dev).to(_storage_dtype(idx.dtype)),
+                scales=_from_numpy(z["scales"], dev).float(),
+                valid=_from_numpy(valid, dev),
+                rowid=_from_numpy(rowid, dev).to(torch.int32),
+            )
+        return idx

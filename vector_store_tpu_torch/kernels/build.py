@@ -43,15 +43,17 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dtype, vectors, scales, rowid, queries, qsq, cids, nsb,
+    # dtype, score, vectors, scales, rowid, queries, qsq, qscale, cids, nsb,
     # Q, B, D, p, k, space, scaled, vec, out_d, out_r, stream
-    "ivf_search_fused": [_I] + [_P] * 7 + [_I] * 8 + [_P] * 3,
+    "ivf_search_fused": [_I] * 2 + [_P] * 8 + [_I] * 8 + [_P] * 3,
     # dtype, vectors, scales, rowid, queries, qsq, cids, nsb,
     # Q, B, D, p, space, scaled, vec, out, stream
     "ivf_pool_scan": [_I] + [_P] * 7 + [_I] * 7 + [_P] * 2,
     # dtype, vectors, scales, queries, cand,
     # Q, BR, C, D, space, scaled, vec, out, stream
     "graph_gather_score": [_I] + [_P] * 4 + [_I] * 7 + [_P] * 2,
+    # q, bank, nblocks, B, D, score, nbuf, acc, stream
+    "copy_probe_stream": [_P] * 2 + [_I] * 5 + [_P] * 2,
 }
 
 
