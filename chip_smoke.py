@@ -12,19 +12,23 @@ parallel), then:
      (Q=256 queries, p=16 probes, bucket B=640, D=768; int8, bf16 and f32
      banks; cosine, dot and l2; B1 at k=10 and 32, B2 also over the packed
      int4 bank), with a tenth of the rows tombstoned and short live
-     prefixes, and times both with CUDA events;
+     prefixes, and times both with CUDA events; checks B1's work list on
+     the card, that one B1 call runs with torch's synchronisation check set
+     to raise and launches at most 4 kernels (torch.profiler), and times B1
+     in every mode beside its bound;
  1b. grows a bucket to 4,096 rows by skewed ingest (65,536 rows, then
-     10,000 near-copies of one) and checks that IvfIndex.search, whose B1
-     pool would no longer fit shared memory, answers through B2 alone, as
-     B1's plain version would;
+     10,000 near-copies of one): IvfIndex.search answers k 10 through B1
+     alone, as B1's plain version would, and k 50 through B2 alone, whose
+     pool is held against B2's plain version;
   2. serves an int8 IVF index over HTTP (in-process server on 127.0.0.1),
      bulk-loads N rows of the bench corpus recipe (default 1,000,000 x 768;
      VST_SMOKE_N lowers it for local runs) through the engine handle in
      8,192-row batches plus 256 rows through POST .../add;
   3. sends 512 limit-10 queries over HTTP with 64 in flight, checks
      recall@10 >= 0.90 against an exact f32 oracle on the card, sends 8
-     limit-50 queries, checks that the HTTP path launched both kernels, and
-     times IvfIndex.search on 2,048 queries in one call;
+     limit-50 queries, checks that the HTTP path launched both kernels,
+     times IvfIndex.search on 2,048 queries in one call, and B1 in every
+     mode at the HTTP batch shape (64 queries, p 16) beside its bound;
   4. holds the graph gather-score kernel B3 against its plain version on a
      262,144 x 768 bank (f32, bf16, int8; cosine, dot, l2) at the search
      shape (Q=256, BR=128) and the insert shape (Q=1,024, BR=512), with
@@ -43,10 +47,11 @@ parallel), then:
      queries, then rebuilds the centroid router (4,096 centroids) and
      reports recall through routed entries;
   7. holds B1's qi8, bf16 and stub score modes against their plain versions
-     at phase 1's shapes (int8; cosine and dot; k 10 and 32) and times them,
-     then times B1 (f32) and B2 at Q=256, p=16 on the bench-geometry index
-     of phase 3 (rows per bucket 340; an int8 bank of over 1 GiB) and takes
-     recall@10 of each mode on it (probes 2, 2,048 queries);
+     at phase 1's shapes (int8, the stub also on bf16 and f32 banks; cosine
+     and dot; k 10 and 32) and times them, then times B1 in every mode at
+     Q=256, p=16 and at Q=1,024, p=2 on the bench-geometry index of phase 3
+     (rows per bucket 340; an int8 bank of over 1 GiB), B2 at Q=256, p=16,
+     and takes recall@10 of each mode on it (probes 2, 2,048 queries);
   8. on that index: derive_coarse's time, the two-stage scan's recall@10
      and batch QPS at probes 2 and 4 beside the single-stage scan's (B2
      packed must launch), then a save -> load round trip in a temporary
@@ -58,7 +63,10 @@ parallel), then:
      score-on rate and of its copy rate at 128 rows.
 
 Any failed phase raises and the exit code is non-zero.  The last line is
-{"ok": true, "device": {...}}, the line before it the kernels' record.
+{"ok": true, "device": {...}}, the line before it the kernels' record, each
+with its bound: the bytes the function must move (each input read once,
+each output written once) over 3.35 TB/s or its operations over the peak
+of their type, whichever is larger (HBM_BYTES_S, PEAK_OPS_S).
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -86,6 +95,11 @@ N_GRAPH = 131_072
 N_REMOVE = 1000
 MIN_RECALL_GEOMETRY = 0.95
 TPU_RECALL_GEOMETRY = 0.983  # BENCH_r05, graph ef=64 @ N=131072 (a TPU record)
+# bound_ms: one H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# the operand type of each B1 score mode (int8 rows x the query)
+MODE_OPS = {"f32": "f32", "bf16": "bf16", "qi8": "int8", "stub": None}
 
 
 def log(msg: str) -> None:
@@ -176,6 +190,85 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes: float, ops: float, kind: str | None) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the bytes the function must move
+    over the HBM rate, or its operations over the peak of their type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3 if kind else 0.0
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b1_work(torch, rid, nsb, cids, D, elem, k, pool_out=False):
+    """(bytes, operations) of one B1 call (B2's with `pool_out`) on these
+    inputs: each distinct probed bucket's live rows read once (row bytes and
+    scale) and the rowids of its live prefix, the f32 queries and the cids,
+    the outputs written once ([Q, k] f32 + int32, or B2's [Q, p*B] f32
+    pool); 2*D operations per (live row, probing query)."""
+    from vector_store_tpu_torch.core.topk import SENTINEL
+
+    Q, p = cids.shape
+    B = rid.shape[1]
+    c = cids.long()
+    live = (rid != SENTINEL).sum(dim=1)
+    prefix = torch.clamp(nsb.long() * 128, max=B)
+    u = torch.unique(c)
+    out = Q * p * B * 4 if pool_out else Q * k * 8
+    rows, slots = int(live[u].sum()), int(prefix[u].sum())
+    nbytes = rows * (D * elem + 4) + slots * 4 + Q * D * 4 + Q * p * 4 + out
+    return nbytes, 2 * D * int(live[c].sum())
+
+
+def _kernel_us(torch, call, reps=5) -> dict:
+    """Device microseconds per call of each kernel `call` launches
+    (torch.profiler, mean of `reps` calls)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = (re.findall(r"\w+_kernel", e.name) or [e.name[:40]])[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / reps
+    return out
+
+
+def b1_shape(torch, label, vec, scl, rid, q, cids, nsb, reps=20):
+    """B1 timed in every mode (cosine, k 10) at one shape, twice, each
+    beside its bound; then its f32 call split by kernel (work list, scan,
+    merge) and the host's time to enqueue one call; returns {mode: numbers,
+    "kernels_us": {...}, "host_ms": t}."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+
+    out = {}
+    D = vec.shape[2]
+    nbytes, ops = b1_work(torch, rid, nsb, cids, D, vec.element_size(), 10)
+    for mode in ("f32", "qi8", "bf16", "stub"):
+        def run():
+            return ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb, mode)
+
+        t1, t2 = _time_ms(torch, run, reps), _time_ms(torch, run, reps)
+        bound, by = _bound(nbytes, ops if MODE_OPS[mode] else 0, MODE_OPS[mode])
+        ms = (t1 + t2) / 2
+        out[mode] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+        log(f"  B1 {label} {mode:4s}: {t1:.4f}/{t2:.4f} ms; bound {bound:.4f} ms ({by}), "
+            f"share {bound / ms:.3f}")
+    def f32():
+        return ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb)
+
+    out["kernels_us"] = _kernel_us(torch, f32, reps=10)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        f32()
+    out["host_ms"] = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    log(f"  B1 {label} f32 by kernel, us per call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["kernels_us"].items())
+        + f"; host enqueue {out['host_ms']:.4f} ms per call")
+    return out
+
+
 def _turns_ms(torch, kern, plain, k_reps, p_reps):
     """(kernel ms, plain ms), timed in the turns plain, kernel, kernel,
     plain, so that a drift of the card's clocks falls on both."""
@@ -210,6 +303,45 @@ def _scan_case(torch, gen, Q, p, B, D, K, device):
     # live prefix are skipped without touching the bank)
     rows_read = (rid != SENTINEL).sum(dim=1)[cids.long()].sum().item()
     return rid, nsb, q, cids, rows_read
+
+
+def b1_host_side(torch, cids, call) -> int:
+    """B1's work list and launch discipline on the card: the work-list
+    kernel's tiles hold every (query, rank) pair once, at most TILE pairs of
+    one bucket each, no more tiles than pairs; `call` (one B1 call) runs
+    with torch's synchronisation check set to raise and launches at most 4
+    kernels (counted by torch.profiler).  Returns that count."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+
+    order, start, n, n_tiles = ic.worklist(cids)
+    order, start, n = order.cpu(), start.cpu(), n.cpu()
+    nt = int(n_tiles.cpu()[0])
+    flat = cids.reshape(-1).cpu()
+    seen = torch.zeros(flat.numel(), dtype=torch.int64)
+    for t in range(nt):
+        pairs = order[int(start[t]) : int(start[t]) + int(n[t])].long()
+        if not 1 <= len(pairs) <= ic.TILE or len(torch.unique(flat[pairs])) != 1:
+            raise AssertionError(f"B1 work list: tile {t} holds {flat[pairs].tolist()}")
+        seen[pairs] += 1
+    want = int(((torch.bincount(flat.long()) + ic.TILE - 1) // ic.TILE).sum())
+    if not (seen == 1).all() or nt != want:
+        raise AssertionError(f"B1 work list: {nt} tiles (want {want}), pairs seen {seen.unique()}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = sorted({m for k in kernels for m in re.findall(r"\w+_kernel", k)})
+    log(f"  B1 work list: {nt} tiles of <= {ic.TILE} pairs for {flat.numel()} pairs; one call "
+        f"ran without a host synchronisation and launched {len(kernels)} kernels: {names}")
+    if len(kernels) != ic.B1_KERNELS_PER_CALL or len(kernels) > 4:
+        raise AssertionError(f"one B1 call launched {len(kernels)} kernels: {kernels}")
+    return len(kernels)
 
 
 def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
@@ -258,6 +390,10 @@ def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
 
     # serving configuration: int8 bank, cosine, k=10; turns plain/kernel/kernel/plain
     vec, scl = banks["int8"]
+    if device == "cuda":
+        report["b1_kernels_per_call"] = b1_host_side(
+            torch, cids, lambda: ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb))
+        report["b1_shape"] = b1_shape(torch, "phase 1", vec, scl, rid, q, cids, nsb)
     runs = {
         "search_fused": (
             lambda: ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb),
@@ -271,24 +407,29 @@ def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
     for name, (kern, plain) in runs.items():
         ms, plain_ms = _turns_ms(torch, kern, plain, 50, 3)
         gbs = rows_read * D / (ms * 1e-3) / 1e9
-        timing[name] = (ms, plain_ms, gbs)
+        nbytes, ops = b1_work(torch, rid, nsb, cids, D, 1, 10, pool_out=name == "pool_scan")
+        bound, by = _bound(nbytes, ops, "f32")
+        timing[name] = (ms, plain_ms, gbs, bound, by)
         log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"({plain_ms / ms:.1f}x; {rows_read} live int8 rows read, {gbs:.1f} GB/s; "
-            f"Q={Q} p={p} B={B} D={D})")
+            f"Q={Q} p={p} B={B} D={D}); bound {bound:.4f} ms ({by}), share {bound / ms:.3f}")
     del banks
     torch.cuda.empty_cache()
     return report, timing
 
 
 def big_bucket(torch, device="cuda", n=65_536, m=10_000):
-    """A bucket grown past B1's limit by skewed ingest: n corpus rows (one
+    """A bucket grown to 4,096 rows by skewed ingest: n corpus rows (one
     recluster), then m near-copies of one row, which fill its first-choice
-    clusters until the bucket doubles to 4,096 rows.  At 16 probes B1's pool
-    needs (768 + 16 x 4,096) x 4 bytes of shared memory, over the 232,448 a
-    block may have, so IvfIndex.search must answer through B2."""
+    clusters until the bucket doubles.  B1 keeps no [p*B] pool, so at k 10
+    IvfIndex.search answers through B1 (which the old design could not take:
+    its pool needed (768 + 16 x 4,096) x 4 bytes of shared memory), held
+    against B1's plain version; at k 50 through B2, held against its plain
+    version."""
     from vector_store_tpu_torch import IndexParams
     from vector_store_tpu_torch.core import ivf_cuda as ic
     from vector_store_tpu_torch.core.ivf import IvfIndex, scan_path
+    from vector_store_tpu_torch.core.topk import topk_ascending_stable
 
     corpus = make_corpus(n, DIM)
     rng = np.random.default_rng([SEED, 3])
@@ -297,36 +438,59 @@ def big_bucket(torch, device="cuda", n=65_536, m=10_000):
     idx.add(corpus)
     idx.add(skew)
     B = idx.state.bucket
-    path = scan_path(10, idx.probes, idx.n_clusters, B, DIM)
-    if B < 4096 or path != "pool":
-        raise AssertionError(f"skewed ingest left bucket {B} (path {path}); want >= 4096, pool")
+    paths = (scan_path(10, DIM), scan_path(50, DIM))
+    if B < 4096 or paths != ("fused", "pool"):
+        raise AssertionError(f"skewed ingest left bucket {B} (paths {paths}); want >= 4096")
     queries = np.concatenate([corpus[:256], skew[:256]])
-    for key in ic.LAUNCHES:
-        ic.LAUNCHES[key] = 0
-    d, ids = idx.search(queries, 10)
-    launches = dict(ic.LAUNCHES)
-    # what B1 would answer if its pool fitted: its plain version, same route
+    launches = {}
+    for k in (10, 50):
+        for key in ic.LAUNCHES:
+            ic.LAUNCHES[key] = 0
+        d, ids = idx.search(queries, k)
+        launches[k] = dict(ic.LAUNCHES)
+        if k == 10:
+            d10, ids10 = d, ids
     st = idx.state
     qf, cids, _ = ic.route(st, torch.as_tensor(queries, device=device), "cosine", idx.probes)
     rid_masked, nsb = ic.scan_masks(st)
+    # k 10: B1 against its plain version, same route
     d_ref, r_ref = ic.search_fused_plain(st.vectors, st.scales, rid_masked, qf, cids, "cosine", 11, nsb)
     _sync(torch, device)
     err, agree, n_sep = _compare_topk(
-        torch, torch.as_tensor(d, device=device), torch.as_tensor(ids, device=device),
+        torch, torch.as_tensor(d10, device=device), torch.as_tensor(ids10, device=device),
         d_ref, r_ref.long(), 10,
     )
-    log(f"  bucket {B} x {idx.n_clusters} clusters after {m} skewed rows: search of "
-        f"{len(queries)} queries at {idx.probes} probes took path {path!r}, launches "
-        f"{launches}; vs B1's plain version: max|d err| {err:.3e}, ids agree {agree:.4f} "
-        f"on {n_sep} separated")
-    if not (launches["pool_scan"] > 0 and launches["search_fused"] == 0):
-        raise AssertionError(f"the big bucket did not go through B2 alone: {launches}")
+    # k 50: B2's pool against its plain version, and the answer against the plain pool's top 50
+    pool_k = ic.pool_scan_fused(st.vectors, st.scales, rid_masked, qf, cids, "cosine", False, nsb)
+    pool_p = ic.pool_scan_plain(st.vectors, st.scales, rid_masked, qf, cids, "cosine", False, nsb)
+    _sync(torch, device)
+    if not torch.equal(torch.isinf(pool_k), torch.isinf(pool_p)):
+        raise AssertionError("big bucket: B2 INF pattern differs from plain")
+    fin = torch.isfinite(pool_p)
+    err2 = float((pool_k - pool_p)[fin].abs().max())
+    pd, pos = topk_ascending_stable(pool_p, 51)
+    pr = torch.gather(rid_masked[cids.long()].reshape(pool_p.shape[0], -1), 1, pos)
+    err3, agree2, n_sep2 = _compare_topk(
+        torch, torch.as_tensor(d, device=device), torch.as_tensor(ids, device=device),
+        pd, pr.long(), 50,
+    )
+    log(f"  bucket {B} x {idx.n_clusters} clusters after {m} skewed rows, {len(queries)} queries at "
+        f"{idx.probes} probes: k 10 took {paths[0]!r}, launches {launches[10]}; vs B1's plain "
+        f"version max|d err| {err:.3e}, ids agree {agree:.4f} on {n_sep} separated; k 50 took "
+        f"{paths[1]!r}, launches {launches[50]}; B2 vs plain max|d err| {max(err2, err3):.3e}, "
+        f"top-50 ids agree {agree2:.4f} on {n_sep2} separated")
+    if launches[10]["search_fused"] == 0 or launches[10]["pool_scan"] != 0:
+        raise AssertionError(f"k 10 on the big bucket did not go through B1 alone: {launches[10]}")
+    if launches[50]["pool_scan"] == 0 or launches[50]["search_fused"] != 0:
+        raise AssertionError(f"k 50 on the big bucket did not go through B2 alone: {launches[50]}")
     # corpus rows find themselves (row 0 excepted: 10,000 near-copies surround it)
-    if err > TOL or agree < 1.0 or not (ids[1:256, 0] == np.arange(1, 256)).all():
-        raise AssertionError(f"big-bucket search disagrees with B1's plain version: {err} {agree}")
+    self_found = (ids10[1:256, 0] == np.arange(1, 256)).all()
+    if max(err, err2, err3) > TOL or min(agree, agree2) < 1.0 or not self_found:
+        raise AssertionError(
+            f"big-bucket search disagrees with the plain versions: {err} {err2} {agree} {agree2}")
     del idx
     torch.cuda.empty_cache()
-    return {"bucket": B, "err": err, "launches": launches}
+    return {"bucket": B, "err": max(err, err2, err3), "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -481,6 +645,14 @@ async def phase_service(torch, n, device="cuda"):
             out["recall_batch"] = _recall([r.tolist() for r in ids], truth)
             log(f"  IvfIndex.search {N_BATCH} queries in one call: {out['batch_qps']:.0f} QPS "
                 f"(median of 3); recall@10 {out['recall_batch']:.4f}")
+            if device == "cuda":  # B1 at the HTTP batch shape: 64 queries, this index, p 16
+                st = idx.state
+                rid_m, nsb_m = ivf_cuda.scan_masks(st)
+                qf, cids, _ = ivf_cuda.route(
+                    st, torch.as_tensor(queries[:64], device=device), "cosine", 16)
+                out["b1_http"] = b1_shape(
+                    torch, "HTTP batch (64 queries, p 16)", st.vectors, st.scales, rid_m, qf,
+                    cids, nsb_m)
     finally:
         await server.close()
         await engine.close()
@@ -560,9 +732,17 @@ def phase_graph_kernels(torch, device="cuda", C=2 * N_GRAPH, D=DIM, shapes=None)
 
             ms, plain_ms = _turns_ms(torch, kern, plain, 20, 3)
             gbs = Q * BR * D * vec.element_size() / (ms * 1e-3) / 1e9
-            timing[(dt, name)] = (ms, plain_ms, gbs)
+            # each distinct candidate row (and int8 scale) read once, the
+            # queries and candidate ids, the [Q, BR] f32 output; 2*D f32
+            # operations per (query, candidate)
+            distinct = int(torch.unique(cand).numel())
+            row_bytes = D * vec.element_size() + (4 if dt == "int8" else 0)
+            nbytes = distinct * row_bytes + Q * D * 4 + 2 * Q * BR * 4
+            bound, by = _bound(nbytes, 2 * D * Q * BR, "f32")
+            timing[(dt, name)] = (ms, plain_ms, gbs, bound, by)
             log(f"  B3 {dt:8s} {name:6s} cosine: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
-                f"({plain_ms / ms:.1f}x; {gbs:.1f} GB/s of rows read, Q={Q} BR={BR} D={D})")
+                f"({plain_ms / ms:.1f}x; {gbs:.1f} GB/s of rows read, Q={Q} BR={BR} D={D}); bound "
+                f"{bound:.4f} ms ({by}, {distinct} distinct rows), share {bound / ms:.3f}")
         del vec, scl
     if err > TOL:
         raise AssertionError(f"B3 disagrees with its plain version: max|d err| {err}")
@@ -723,15 +903,17 @@ def graph_geometry(torch, n=N_GRAPH, device="cuda"):
 
 
 MODES = ("qi8", "bf16", "stub")
-# qi8: integer dots and one f32 product chain, as in the plain version;
-# bf16: exact products summed in another order; stub: one product
-MODE_TOL = {"qi8": 1e-6, "bf16": TOL, "stub": TOL}
+# qi8: exact integer dots and the same f32 product chain as the plain
+# version; bf16: the bf16 query's digits, ~1e-8 of a distance; stub: one
+# product
+MODE_TOL = {"qi8": 0.0, "bf16": TOL, "stub": 0.0}
 
 
 def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
     """B1's qi8, bf16 and stub modes against their plain versions at phase
-    1's shapes on an int8 bank (cosine and dot; k 10 and 32), then each
-    mode's time (cosine, k 10; plain, kernel, kernel, plain)."""
+    1's shapes on an int8 bank (cosine and dot; k 10 and 32), the stub also
+    on bf16 and f32 banks (phase 1 holds the f32 mode on all three), then
+    each mode's time (cosine, k 10; plain, kernel, kernel, plain)."""
     from vector_store_tpu_torch.core import ivf_cuda as ic
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
@@ -749,6 +931,18 @@ def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
                 log(f"  B1 {mode:4s} {space:6s} k={k:2d}: max|d err| {err:.3e}  "
                     f"ids agree {agree:.4f} on {n_sep} separated")
                 rep["err"], rep["agree"] = max(rep["err"], err), min(rep["agree"], agree)
+        if mode == "stub":
+            for dt in ("bfloat16", "float32"):
+                bv, bs = _bank(torch, dt, K, B, D, gen, device)
+                for k in (10, 32):
+                    d_k, r_k = ic.search_fused(bv, bs, rid, q, cids, "cosine", k, nsb, mode)
+                    d_p, r_p = ic.search_fused_plain(bv, bs, rid, q, cids, "cosine", k + 1, nsb, mode)
+                    torch.cuda.synchronize()
+                    err, agree, n_sep = _compare_topk(torch, d_k, r_k, d_p, r_p, k)
+                    log(f"  B1 stub {dt} k={k:2d}: max|d err| {err:.3e}  ids agree {agree:.4f} "
+                        f"on {n_sep} separated")
+                    rep["err"], rep["agree"] = max(rep["err"], err), min(rep["agree"], agree)
+                del bv, bs
         if rep["err"] > MODE_TOL[mode] or rep["agree"] < 1.0:
             raise AssertionError(f"B1 {mode}: kernel disagrees with plain: {rep}")
         rep["ms"], rep["plain_ms"] = _turns_ms(
@@ -759,9 +953,13 @@ def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
             3,
         )
         rep["gbs"] = rows_read * D / (rep["ms"] * 1e-3) / 1e9
+        nbytes, ops = b1_work(torch, rid, nsb, cids, D, 1, 10)
+        kind = MODE_OPS[mode]
+        rep["bound_ms"], rep["bound_by"] = _bound(nbytes, ops if kind else 0, kind)
         log(f"  B1 {mode}: kernel {rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  "
             f"({rep['plain_ms'] / rep['ms']:.1f}x; {rep['gbs']:.1f} GB/s of rows read, "
-            f"Q={Q} p={p} B={B} D={D})")
+            f"Q={Q} p={p} B={B} D={D}); bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
+            f"share {rep['bound_ms'] / rep['ms']:.3f}")
     del vec, scl
     torch.cuda.empty_cache()
     return report
@@ -773,18 +971,26 @@ def bench_rates(torch, geo, Q=256, p=16):
     the first Q queries routed to their p clusters, cosine, k 10.  Rows read
     are the live rows of the probed buckets, counted once per probe;
     `distinct` is the share of them in distinct buckets (the rest may come
-    from L2).  These are the rates held against B4's in phase 9."""
+    from L2).  These are the rates held against B4's in phase 9.  Before
+    them, B1 in every mode at this shape and at the bench geometry's own
+    (1,024 queries, probes 2)."""
     from vector_store_tpu_torch.core import ivf_cuda as ic
 
     idx, queries, _ = geo
     st = idx.state
     rid, nsb = ic.scan_masks(st)
+    shapes = {}
+    cases = (("bench index Q=256 p=16", Q, p), ("bench geometry Q=1024 p=2", 1024, 2))
+    for label, qn, pn in cases if idx.device.type == "cuda" else ():
+        qq, cc, _ = ic.route(st, torch.as_tensor(queries[:qn], device=idx.device), "cosine", pn)
+        shapes[label] = b1_shape(torch, label, st.vectors, st.scales, rid, qq, cc, nsb)
     q, cids, p = ic.route(st, torch.as_tensor(queries[:Q], device=idx.device), "cosine", p)
     live = st.valid.sum(dim=1)
     rows_read = int(live[cids.long()].sum())
     out = {
         "bank_gib": st.vectors.numel() / 2**30,
         "distinct": int(live[torch.unique(cids.long())].sum()) / rows_read,
+        "b1_shapes": shapes,
     }
     runs = {
         "search_fused": lambda: ic.search_fused(
@@ -932,13 +1138,17 @@ def phase_copy_probe(torch, device="cuda"):
     ms, plain_ms = _turns_ms(
         torch, lambda: dma.stream(q, bank, True), lambda: dma.stream_plain(q, bank, True), 20, 2
     )
+    # the bank read once; 2*D f32 operations per row (score on)
+    bound, by = _bound(bank.numel() + q.numel() * 4 + 32, 2 * bank.numel(), "f32")
     del flat, bank
     torch.cuda.empty_cache()
     log(f"  B4 B=128 score=1: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms; max rel err "
-        f"{err['rel']:.3e} (abs {err['abs']:.3e}); launches {launches}")
+        f"{err['rel']:.3e} (abs {err['abs']:.3e}); launches {launches}; bound {bound:.4f} ms "
+        f"({by}), share {bound / ms:.3f}")
     if device == "cuda" and launches == 0:
         raise AssertionError("B4 was not launched")
-    return {"rows": rows, "err": err, "launches": launches, "ms": ms, "plain_ms": plain_ms}
+    return {"rows": rows, "err": err, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
 
 
 # --------------------------------------------------------------------------
@@ -978,7 +1188,7 @@ def main() -> int:
 
     log("phase 1: kernels vs plain PyTorch at serving shapes")
     report, timing = phase_kernels(torch)
-    log("phase 1b: a bucket grown to 4,096 rows is served through B2")
+    log("phase 1b: a bucket grown to 4,096 rows: B1 at k 10, B2 at k 50")
     big_bucket(torch)
 
     log(f"phase 2-3: service at N={n}")
@@ -1020,63 +1230,87 @@ def main() -> int:
             f"{gbs / roof[False]:.3f} of its copy rate ({roof[False]:.1f} GB/s); phase 1's "
             f"synthetic bank {timing[name][2]:.1f} GB/s")
 
+    # library_ms: no single PyTorch call computes B1 (gather the probed
+    # buckets, score, mask, top-k), B2 or B3 (each a gather before the
+    # product) or B4 (a product, a min per block and a sum per group)
+    no_library = "no single PyTorch call: a gather (B1-B3) or a min and sum (B4) comes first"
+    src = "vector_store_tpu_torch/csrc/"
     kernels = [
         {
+            # times: phase 1's shapes, int8, cosine, k 10
             "name": "ivf_search_fused",
             "route": "cuda",
-            "source": "vector_store_tpu_torch/csrc/ivf_scan.cu",
+            "source": src + "ivf_scan.cu",
             "replaces": "vector_store_tpu/core/ivf_pallas.py:128",
             "launches": svc["launches"]["search_fused"],
             "max_abs_err": report["search_fused"]["err"],
             "ms": timing["search_fused"][0],
             "plain_ms": timing["search_fused"][1],
+            "bound_ms": timing["search_fused"][3],
+            "bound_by": timing["search_fused"][4],
+            "library_ms": None,
         },
     ]
     for mode in MODES:
         kernels.append({
             "name": f"ivf_search_fused[{mode}]",
             "route": "cuda",
-            "source": "vector_store_tpu_torch/csrc/ivf_scan.cu",
+            "source": src + "ivf_scan.cu",
             "replaces": "vector_store_tpu/core/ivf_pallas.py:128",
             "launches": mode_launches[mode],
             "max_abs_err": modes[mode]["err"],
             "ms": modes[mode]["ms"],
             "plain_ms": modes[mode]["plain_ms"],
+            "bound_ms": modes[mode]["bound_ms"],
+            "bound_by": modes[mode]["bound_by"],
+            "library_ms": None,
         })
+    b3 = b3_timing[("bfloat16", "search")]
     kernels += [
         {
             "name": "ivf_pool_scan",
             "route": "cuda",
-            "source": "vector_store_tpu_torch/csrc/ivf_scan.cu",
+            "source": src + "ivf_scan.cu",
             "replaces": "vector_store_tpu/core/ivf_pallas.py:252",
             "launches": svc["launches"]["pool_scan"],
             "max_abs_err": report["pool_scan"]["err"],
             "ms": timing["pool_scan"][0],
             "plain_ms": timing["pool_scan"][1],
+            "bound_ms": timing["pool_scan"][3],
+            "bound_by": timing["pool_scan"][4],
+            "library_ms": None,
         },
         {
             # times: bf16 bank (the route's default dtype), search shape
             "name": "graph_gather_score",
             "route": "cuda",
-            "source": "vector_store_tpu_torch/csrc/graph_gather.cu",
+            "source": src + "graph_gather.cu",
             "replaces": "vector_store_tpu/core/graph_pallas.py:89",
             "launches": gsvc["launches_ingest"] + gsvc["launches_query"],
             "max_abs_err": b3_err,
-            "ms": b3_timing[("bfloat16", "search")][0],
-            "plain_ms": b3_timing[("bfloat16", "search")][1],
+            "ms": b3[0],
+            "plain_ms": b3[1],
+            "bound_ms": b3[3],
+            "bound_by": b3[4],
+            "library_ms": None,
         },
         {
             # times: B=128, score on, over the >= 1 GiB bank
             "name": "copy_probe_stream",
             "route": "cuda",
-            "source": "vector_store_tpu_torch/csrc/copy_probe.cu",
+            "source": src + "copy_probe.cu",
             "replaces": "scripts/probe_dma.py:30",
             "launches": b4["launches"],
             "max_abs_err": b4["err"]["abs"],
             "ms": b4["ms"],
             "plain_ms": b4["plain_ms"],
+            "bound_ms": b4["bound_ms"],
+            "bound_by": b4["bound_by"],
+            "library_ms": None,
         },
     ]
+    for kern in kernels:
+        kern["library_note"] = no_library
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

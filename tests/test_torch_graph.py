@@ -31,7 +31,8 @@ from vector_store_tpu.core import bruteforce as jbrute
 from vector_store_tpu.core import cluster as jcluster
 from vector_store_tpu.core import index as jindex
 from vector_store_tpu.core import search as jsearch
-from vector_store_tpu.types import IndexParams
+from vector_store_tpu.types import IndexParams as JIndexParams
+from vector_store_tpu_torch import IndexParams
 from vector_store_tpu_torch.core import build as tbuild
 from vector_store_tpu_torch.core import bruteforce as tbrute
 from vector_store_tpu_torch.core import cluster as tcluster
@@ -65,7 +66,7 @@ def _queries(x, q=16, seed=9, noise=0.05):
 @functools.lru_cache(maxsize=None)
 def _jax_index(dtype: str, space: str = "cosine"):
     idx = jindex.SlotIndex(
-        IndexParams(dimensions=D, space=space, dtype=dtype), initial_capacity=CAP
+        JIndexParams(dimensions=D, space=space, dtype=dtype), initial_capacity=CAP
     )
     idx.add(_data())
     return idx

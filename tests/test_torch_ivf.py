@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from vector_store_tpu.core import ivf as jivf
-from vector_store_tpu.types import IndexParams
+from vector_store_tpu.types import IndexParams as JIndexParams
+from vector_store_tpu_torch import IndexParams
 from vector_store_tpu_torch.core import ivf as tivf
 
 D = 64
@@ -62,9 +63,8 @@ def _recall(got, want):
 def _built(dtype, space):
     """JAX and port indexes fed the same adds and removes."""
     x = _clustered(8000, D, seed=2)
-    params = IndexParams(dimensions=D, space=space, dtype=dtype)
-    jx = jivf.IvfIndex(params, cluster_min=4000)
-    tx = tivf.IvfIndex(params, cluster_min=4000, device="cpu")
+    jx = jivf.IvfIndex(JIndexParams(dimensions=D, space=space, dtype=dtype), cluster_min=4000)
+    tx = tivf.IvfIndex(IndexParams(dimensions=D, space=space, dtype=dtype), cluster_min=4000, device="cpu")
     ids = []
     for lo, hi in ((0, 6000), (6000, 8000)):  # staging + recluster, clustered
         a, b = jx.add(x[lo:hi]), tx.add(x[lo:hi])
@@ -161,9 +161,8 @@ def test_staging_search_matches_jax():
     quantizes the same bf16 rows, but XLA fuses the normalisation), which
     moves a cosine distance by at most one code step, 1/127."""
     x = _clustered(1500, D, seed=4)
-    params = IndexParams(dimensions=D, space="cosine", dtype="int8")
-    jx = jivf.IvfIndex(params, cluster_min=4000)
-    tx = tivf.IvfIndex(params, cluster_min=4000, device="cpu")
+    jx = jivf.IvfIndex(JIndexParams(dimensions=D, space="cosine", dtype="int8"), cluster_min=4000)
+    tx = tivf.IvfIndex(IndexParams(dimensions=D, space="cosine", dtype="int8"), cluster_min=4000, device="cpu")
     jx.add(x)
     tx.add(x)
     assert not tx._clustered
@@ -204,19 +203,22 @@ def test_compact_keeps_ids_and_results():
 
 
 def test_scan_path_sends_pools_that_do_not_fit_to_b2():
-    """B1 keeps its [p*B] pool in shared memory; a batch whose pool does not
-    fit (a bucket grown past 3,584 rows at 16 probes, D=768) or whose k
-    exceeds FUSED_MAX_K goes to B2 + one top-k."""
-    assert tivf.scan_path(10, 16, 2816, 640, 768) == "fused"
-    assert tivf.scan_path(10, 16, 2816, 3584, 768) == "fused"  # exactly the limit
-    assert tivf.scan_path(10, 16, 2816, 4096, 768) == "pool"
-    assert tivf.scan_path(tivf.FUSED_MAX_K + 1, 2, 2816, 640, 768) == "pool"
-    assert tivf.scan_path(10, 64, 8, 4096, 768) == "fused"  # p = min(probes, K) = 8
+    """B1 has no pool in shared memory: every k <= FUSED_MAX_K batch goes to
+    it whatever the bucket size or probe count (a 4,096-row bucket at 16
+    probes included); a larger k, or more dims than a B1 block's shared
+    memory takes (ivf_cuda.FUSED_MAX_DIMS), goes to B2 + one top-k."""
+    from vector_store_tpu_torch.core import ivf_cuda
+
+    assert tivf.scan_path(10, 768) == "fused"
+    assert tivf.scan_path(tivf.FUSED_MAX_K, 768) == "fused"
+    assert tivf.scan_path(tivf.FUSED_MAX_K + 1, 768) == "pool"
+    assert tivf.scan_path(10, ivf_cuda.FUSED_MAX_DIMS) == "fused"  # exactly the limit
+    assert tivf.scan_path(10, ivf_cuda.FUSED_MAX_DIMS + 1) == "pool"
 
 
 def test_search_takes_b2_when_b1_pool_does_not_fit(monkeypatch):
-    """The IvfIndex asks scan_path: with B1's pool over the shared-memory
-    limit the same query batch is served by B2 with the same answers."""
+    """The IvfIndex asks scan_path: over B1's dims limit the same query
+    batch is served by B2 with the same answers."""
     from vector_store_tpu_torch.core import ivf_cuda
 
     _, tx, x, _ = _built("int8", "cosine")
@@ -227,7 +229,7 @@ def test_search_takes_b2_when_b1_pool_does_not_fit(monkeypatch):
         monkeypatch.setattr(
             tivf, name, lambda *a, _n=name, _f=fn, **kw: calls.append(_n) or _f(*a, **kw)
         )
-    monkeypatch.setattr(ivf_cuda, "MAX_SMEM_BYTES", 4096)
+    monkeypatch.setattr(ivf_cuda, "FUSED_MAX_DIMS", D - 1)
     d_b2, i_b2 = tx.search(x[:16], 10)
     assert calls == ["search_clustered_pool"]
     np.testing.assert_allclose(d_b2, d_b1, atol=1e-6)

@@ -12,6 +12,8 @@ card by chip_smoke.py.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -187,12 +189,25 @@ def test_score_modes_refuse_what_the_kernel_does_not_take(score, dtype, space):
 
 
 def test_fused_smem_bound():
-    """B1 keeps (D + p*B) f32 in shared memory: 16 probes of a 3,584-row
-    bucket at D=768 is the largest that fits; 4,096 rows does not; the
-    stub mode's copy slots take 8.4 KB more."""
-    assert ivf_cuda.fused_fits(768, 16, 3584)
-    assert not ivf_cuda.fused_fits(768, 16, 4096)
-    assert ivf_cuda.fused_smem_bytes(768, 16, 640, "stub") == (768 + 16 * 640) * 4 + 528 * 16
+    """B1's limits: a scan block's shared memory depends on D alone (two
+    [TILE, 128] f32 score blocks, then the tile's queries: four int8
+    digits each on the tensor-core path, f32 on the CUDA-core path), so
+    at FUSED_MAX_DIMS both paths fit the 232,448 bytes a block may have,
+    whatever the bucket or probe count.  The wrapper's constants are the
+    kernel's, and it refuses what lies past them."""
+    src = (Path(ivf_cuda.__file__).parent.parent / "csrc" / "ivf_scan.cu").read_text()
+    for name, value in (("kTile", ivf_cuda.TILE), ("kMaxPairs", ivf_cuda.MAX_PAIRS),
+                        ("kMaxDims", ivf_cuda.FUSED_MAX_DIMS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    D = ivf_cuda.FUSED_MAX_DIMS
+    scores = 2 * ivf_cuda.TILE * 128 * 4
+    qstride = -(-D // 128) * 128 + 64
+    assert scores + 4 * ivf_cuda.TILE * qstride <= 232_448  # int8 banks, f32 digits
+    assert scores + ivf_cuda.TILE * D * 4 <= 232_448  # bf16 / f32 banks
+    ivf_cuda._b1_limits(D, ivf_cuda.MAX_PAIRS, 32)
+    for args in ((D + 1, 16, 10), (768, ivf_cuda.MAX_PAIRS + 1, 10), (768, 16, 33)):
+        with pytest.raises(ValueError, match="B1 takes"):
+            ivf_cuda._b1_limits(*args)
 
 
 @pytest.mark.parametrize("packed,space", [(False, "l2"), (True, "cosine")])

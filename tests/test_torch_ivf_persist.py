@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from vector_store_tpu.core import ivf as jivf
-from vector_store_tpu.types import IndexParams
+from vector_store_tpu.types import IndexParams as JIndexParams
+from vector_store_tpu_torch import IndexParams
 from vector_store_tpu_torch.core import ivf as tivf
 
 D = 128
@@ -46,8 +47,8 @@ def _fill(idx, x):
     return idx
 
 
-def _params(dtype):
-    return IndexParams(dimensions=D, space="cosine", dtype=dtype)
+def _params(dtype, cls=IndexParams):
+    return cls(dimensions=D, space="cosine", dtype=dtype)
 
 
 def _jax_arrays(st):
@@ -80,7 +81,7 @@ def _agree(got, want):
 @pytest.mark.parametrize("dtype,coarse", [("int8", True), ("bfloat16", False)])
 def test_jax_snapshot_loads_into_the_port(tmp_path, dtype, coarse):
     x, q = _data()
-    jx = _fill(jivf.IvfIndex(_params(dtype), cluster_min=4000, coarse=coarse, rescore=16), x)
+    jx = _fill(jivf.IvfIndex(_params(dtype, JIndexParams), cluster_min=4000, coarse=coarse, rescore=16), x)
     path = str(tmp_path / "jax.npz")
     jx.save(path)
     tx = tivf.IvfIndex.load(path, device="cpu")

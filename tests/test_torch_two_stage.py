@@ -25,7 +25,8 @@ import torch
 
 from vector_store_tpu.core import ivf as jivf
 from vector_store_tpu.core import quantize as jquant
-from vector_store_tpu.types import IndexParams
+from vector_store_tpu.types import IndexParams as JIndexParams
+from vector_store_tpu_torch import IndexParams
 from vector_store_tpu_torch.core import ivf as tivf
 
 D = 128
@@ -56,7 +57,7 @@ def _recall(ids, exact):
 def _jax_index(space):
     x = _clustered(6000, D, seed=3)
     idx = jivf.IvfIndex(
-        IndexParams(dimensions=D, space=space, dtype="int8"), cluster_min=4000, coarse=True
+        JIndexParams(dimensions=D, space=space, dtype="int8"), cluster_min=4000, coarse=True
     )
     ids = idx.add(x)
     idx.remove(ids[5:400:7])  # tombstones pool as INF

@@ -1,11 +1,11 @@
 """vector_store_tpu_torch — the ANN serving paths of vector_store_tpu on
 PyTorch and CUDA: kinds "ann" (the graph, the default), "exact" and "ivf".
 
-A second package beside the JAX one.  It imports torch and never jax: the
-domain types, configuration and the metrics and native helpers come from
-the jax-free modules `vector_store_tpu.types`, `.config`, `.utils.metrics`,
-`.utils.native` and `.utils.persistio`; the engine, API, graph and IVF
-layers are this package's own.  The kernels are hand-written CUDA for
+A second package beside the JAX one.  It imports torch, never jax, and
+nothing of the JAX package: the domain types (`types`), configuration
+(`config`), metrics, atomic snapshot writes and the native JSON scanners
+(`utils/`) are this package's own copies, as are the engine, API, graph
+and IVF layers (tests/test_torch_imports.py pins it).  The kernels are hand-written CUDA for
 sm_90a (csrc/: the IVF probe scans, the graph gather-score and the
 copy-rate probe), built with nvcc at first use.  `probes/` holds the
 measurement modules run on the card (python -m vector_store_tpu_torch.probes.*).
@@ -19,7 +19,7 @@ Public surface (mirrors vector_store_tpu):
 
 __version__ = "0.1.0"
 
-from vector_store_tpu.types import (  # noqa: F401
+from .types import (  # noqa: F401
     AnnResult,
     DbEmbedding,
     IndexId,

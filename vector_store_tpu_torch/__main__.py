@@ -10,7 +10,7 @@ import argparse
 import asyncio
 import logging
 
-from vector_store_tpu.config import Config, load_dotenv
+from .config import Config, load_dotenv
 
 from . import new_index_factory, run, wait_for_shutdown
 

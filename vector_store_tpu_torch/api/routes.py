@@ -30,9 +30,9 @@ import time
 import numpy as np
 from aiohttp import web
 
-from vector_store_tpu.types import IndexId, IndexMetadata, IndexParams, Limit
-from vector_store_tpu.utils import metrics
-from vector_store_tpu.utils import native as _native
+from ..types import IndexId, IndexMetadata, IndexParams, Limit
+from ..utils import metrics
+from ..utils import native as _native
 
 from ..engine.engine import EngineHandle
 from ..engine.factory import PORTED_KINDS, resolve_kind

@@ -25,7 +25,7 @@ import threading
 import numpy as np
 import torch
 
-from vector_store_tpu.types import IndexParams
+from ..types import IndexParams
 
 from . import build, bruteforce, cluster, graph, search
 from .distance import preprocess

@@ -21,8 +21,8 @@ Differences from the JAX package, all by design:
   * no fixed-shape padding of scatters, assigns, query batches or coarse
     repacks (those bounded XLA compiles; eager PyTorch has none);
   * top-k is exact `torch.topk` where JAX used `approx_min_k`;
-  * a query batch whose B1 pool does not fit shared memory (`scan_path`)
-    goes to B2 + one top-k, where the TPU kernel kept the pool in VMEM;
+  * a query batch of more than FUSED_MAX_DIMS dims (B1's shared-memory
+    limit, `scan_path`) goes to B2 + one top-k;
   * the device is explicit (`device=`) and nothing falls back to the CPU.
 """
 
@@ -36,8 +36,8 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
-from vector_store_tpu.types import IndexParams
-from vector_store_tpu.utils.persistio import atomic_savez
+from ..types import IndexParams
+from ..utils.persistio import atomic_savez
 
 from . import ivf_cuda
 from .distance import gathered, normalize, pairwise, preprocess
@@ -58,8 +58,8 @@ SPILL = 4
 # Query-batch chunk: bounds the [q, p*B] pool and the [q, K] route transients.
 QCHUNK = 256
 PROBE_DEFAULT = 16
-# Largest k served by B1 (its top-k is k block-wide argmin passes); larger
-# k takes B2 + one torch.topk.
+# Largest k served by B1 (a warp keeps each running top-k, one entry per
+# lane); larger k takes B2 + one torch.topk.
 FUSED_MAX_K = 32
 # Past this bank size, cluster overflow goes to the least-filled clusters
 # (marked dirty for the incremental compact) instead of doubling the bank.
@@ -357,13 +357,12 @@ def search_two_stage(
     return _rescore_flat(state, q, bd, bflat, space, k)
 
 
-def scan_path(k: int, probes: int, n_clusters: int, bucket: int, dims: int) -> str:
+def scan_path(k: int, dims: int) -> str:
     """The kernel that serves a clustered single-stage query batch: "fused"
-    (B1, whose top-k is k argmin passes over a [p*B] pool in shared
-    memory) when k <= FUSED_MAX_K and that pool fits a block, else "pool"
-    (B2 + one torch.topk: any k, any bucket)."""
-    p = min(probes, n_clusters)
-    if k <= FUSED_MAX_K and ivf_cuda.fused_fits(dims, p, bucket):
+    (B1: any bucket size and probe count) when k <= FUSED_MAX_K and the
+    dims fit its shared memory (ivf_cuda.FUSED_MAX_DIMS), else "pool" (B2
+    + one torch.topk: any k)."""
+    if k <= FUSED_MAX_K and dims <= ivf_cuda.FUSED_MAX_DIMS:
         return "fused"
     return "pool"
 
@@ -873,7 +872,7 @@ class IvfIndex:
             masks = scan_masks(state) if clustered else None
             two_stage = clustered and self.coarse
             coarse_bank = self._refresh_coarse_locked() if two_stage else None
-            path = scan_path(k, probes, state.n_clusters, state.bucket, state.dims)
+            path = scan_path(k, state.dims)
             for off in range(0, n, QCHUNK):
                 q = torch.as_tensor(queries[off : off + QCHUNK], device=self.device)
                 if two_stage:

@@ -6,13 +6,18 @@ csrc/ivf_scan.cu:
   search_fused     -> ivf_search_fused (B1): per query, score the live
                       prefix of its p probed buckets and keep the k best,
                       in one of four score modes (f32, qi8, bf16, stub).
+                      Three launches: a work list of tiles (one bucket, up
+                      to TILE of the (query, rank) pairs probing it), the
+                      scan (each tile reads its bucket once and keeps a
+                      top-k per pair), the merge of the p partial lists.
   pool_scan_fused  -> ivf_pool_scan (B2): the same scoring, returned as the
                       raw [Q, p*B] distance pool (optionally over the
                       int4 split-nibble bank).
 
 Each wrapper chooses by the device of the tensors it is given: CPU tensors
 go to the plain PyTorch version beside it, CUDA tensors launch the kernel
-(or raise).  LAUNCHES counts kernel launches only.
+(or raise).  LAUNCHES counts B1 calls (B1_KERNELS_PER_CALL launches each)
+and B2 launches, never the plain versions.
 
 search_clustered_fused / search_clustered_pool add the centroid route in
 plain torch, as XLA did outside the Pallas kernels.
@@ -24,17 +29,22 @@ import torch
 
 from .distance import pairwise, preprocess
 from .quantize import int4_scale, unpack_int4
-from .topk import INF, SENTINEL, topk_ascending, topk_ascending_stable
+from .topk import INF, SENTINEL, lexsort_stable, topk_ascending, topk_ascending_stable
 
 # live-prefix granularity: a bucket is scanned up to nsb[c] * SUB_BLOCK rows
 SUB_BLOCK = 128
-# shared memory a block may opt into on sm_90 (B1 keeps its pool there)
-MAX_SMEM_BYTES = 232_448
-# threads of one B1 block (kFusedThreads in csrc/ivf_scan.cu)
-_FUSED_THREADS = 512
+# B1's limits (csrc/ivf_scan.cu): (query, rank) pairs per tile; pairs per
+# work list (a larger batch is cut into chunks of MAX_PAIRS // p queries,
+# three launches each); dims, which alone set a scan block's shared memory
+TILE = 16
+MAX_PAIRS = 8192
+FUSED_MAX_DIMS = 3072
+# CUDA launches of one B1 call (work list, scan, merge)
+B1_KERNELS_PER_CALL = 3
 # the plain versions gather [q, p, B, D] f32 blocks; bound that transient
 _PLAIN_BYTES = 1 << 29
 
+# B1 calls (each B1_KERNELS_PER_CALL launches) and B2 launches
 LAUNCHES = {"search_fused": 0, "pool_scan": 0}
 # B1 launches by score mode (each one also counts in LAUNCHES["search_fused"])
 SCORE_LAUNCHES = {"f32": 0, "qi8": 0, "bf16": 0, "stub": 0}
@@ -43,6 +53,7 @@ _SPACES = {"cosine": 0, "dot": 1, "l2": 2}
 _SCORES = {"f32": 0, "qi8": 1, "bf16": 2, "stub": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _PACKED = 3
+_INT_MAX = 2**31 - 1  # a partial entry's position where its distance is INF
 
 
 def live_prefix_blocks(valid: torch.Tensor, block: int = SUB_BLOCK) -> torch.Tensor:
@@ -63,6 +74,13 @@ def _full_prefix(vectors: torch.Tensor) -> torch.Tensor:
 # plain PyTorch versions
 
 
+def _check_score(vectors: torch.Tensor, space: str, score: str) -> None:
+    if score not in _SCORES:
+        raise ValueError(f"unknown score mode {score!r}")
+    if score in ("qi8", "bf16") and (space == "l2" or vectors.dtype != torch.int8):
+        raise ValueError(f"score={score!r} needs int8 rows and cosine/dot")
+
+
 def score_query(
     queries_prep: torch.Tensor, vectors: torch.Tensor, space: str, score: str
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -73,12 +91,12 @@ def score_query(
     quantizes it symmetrically per query to int8 codes (round half to even,
     clip +-127) and returns their scale max|q|/127.  qi8 and bf16 need int8
     rows and cosine or dot."""
-    if score not in _SCORES:
-        raise ValueError(f"unknown score mode {score!r}")
-    if score in ("qi8", "bf16") and (space == "l2" or vectors.dtype != torch.int8):
-        raise ValueError(f"score={score!r} needs int8 rows and cosine/dot")
+    _check_score(vectors, space, score)
     if score == "qi8":
-        qs = torch.clamp(torch.amax(torch.abs(queries_prep), dim=1), min=1e-30) / 127.0
+        m = torch.clamp(torch.amax(torch.abs(queries_prep), dim=1), min=1e-30)
+        # a tensor divisor: torch divides a CUDA tensor by a Python scalar
+        # through its reciprocal, which rounds differently from m / 127
+        qs = m / torch.full_like(m, 127.0)
         codes = torch.clamp(torch.round(queries_prep / qs[:, None]), -127, 127)
         return codes.to(torch.int8), qs
     if score == "bf16":
@@ -178,6 +196,25 @@ def search_fused_plain(
     return _pad_k(top_d, top_r, k)
 
 
+def query_digits(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 query as B1's tensor-core path takes it, in plain torch:
+    (digits [Q, 4, D] int8, factor [Q] f32) with
+    q = factor * (d1 * 2^21 + d2 * 2^14 + d3 * 2^7 + d4), each |d| <= 64:
+    the query at a power of two 2^e that puts max|q| in [32, 64), cut into
+    four base-128 digits by round-half-even, the residual dropped."""
+    q = queries.float()
+    m = torch.amax(torch.abs(q), dim=1)
+    e = torch.where(m > 0, torch.frexp(m)[1] - 1 - 5, 0).to(torch.int32)  # ilogb(m) - 5
+    v = torch.ldexp(q, -e[:, None].float())
+    digits = []
+    for _ in range(4):
+        d = torch.round(v)
+        digits.append(d)
+        v = (v - d) * 128.0
+    fac = torch.ldexp(torch.ones_like(m), (e - 21).float())
+    return torch.stack(digits, 1).to(torch.int8), fac
+
+
 def _pad_k(top_d, top_r, k):
     kk = top_d.shape[1]
     if k > kk:
@@ -190,8 +227,9 @@ def _pad_k(top_d, top_r, k):
 # kernel wrappers
 
 
-def _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D):
-    """Validate what the kernels take; return (vec, qsq, stream)."""
+def _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D, qsq=True):
+    """Validate what the kernels take; return (vec, |q|^2 per query or None
+    when `qsq` is false, stream)."""
     dev = vectors.device
     K, B = vectors.shape[:2]
     Q, p = cids.shape
@@ -211,11 +249,9 @@ def _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D):
             raise ValueError(f"{name} must be contiguous")
     if not vectors.is_contiguous():
         raise ValueError("vectors must be contiguous")
-    if Q > 65535:
-        raise ValueError(f"query batch {Q} exceeds 65535")
     row_bytes = vectors.shape[2] * vectors.element_size()
     vec = int(row_bytes % 16 == 0 and vectors.data_ptr() % 16 == 0)
-    qsq = torch.sum(queries_prep * queries_prep, dim=-1)
+    qsq = torch.sum(queries_prep * queries_prep, dim=-1) if qsq else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     return vec, qsq, stream
 
@@ -225,19 +261,13 @@ def _check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def fused_smem_bytes(dims: int, probes: int, bucket: int, score: str = "f32") -> int:
-    """Shared memory of one B1 block: the staged query and the [p*B] pool
-    (f32), plus in the stub mode a 16-byte copy slot per thread and warp."""
-    smem = (dims + probes * bucket) * 4
-    if score == "stub":
-        smem = -(-smem // 16) * 16 + (_FUSED_THREADS + _FUSED_THREADS // 32) * 16
-    return smem
-
-
-def fused_fits(dims: int, probes: int, bucket: int, score: str = "f32") -> bool:
-    """Whether B1 can take a query batch of this geometry: its pool must
-    fit one block's shared memory (MAX_SMEM_BYTES)."""
-    return fused_smem_bytes(dims, probes, bucket, score) <= MAX_SMEM_BYTES
+def _b1_limits(D: int, p: int, k: int) -> None:
+    if D > FUSED_MAX_DIMS:
+        raise ValueError(f"B1 takes at most {FUSED_MAX_DIMS} dims, got {D}")
+    if p > MAX_PAIRS:
+        raise ValueError(f"B1 takes at most {MAX_PAIRS} probes, got {p}")
+    if not 1 <= k <= 32:
+        raise ValueError(f"B1 takes 1 <= k <= 32, got {k}")
 
 
 def search_fused(
@@ -255,7 +285,10 @@ def search_fused(
 
     `score` as ivf_pallas.search_fused: "f32" (the serving mode), "qi8"
     (int8 query, s8 x s8 -> s32 dots), "bf16" (bf16-rounded query) or
-    "stub" (the copy-floor ablation: a row scores as element 0 x scale)."""
+    "stub" (the copy-floor ablation: a row scores as element 0 x scale).
+    On CUDA the kernel builds the query operand of the mode itself, from
+    the f32 query, and the call does not synchronise the host: any bucket
+    size, k <= 32, D <= FUSED_MAX_DIMS."""
     if nsb is None:
         nsb = _full_prefix(vectors)
     if vectors.device.type == "cpu":
@@ -268,52 +301,130 @@ def search_fused(
         raise ValueError(f"unsupported bank dtype {vectors.dtype}")
     K, B, D = vectors.shape
     Q, p = cids.shape
-    if not fused_fits(D, p, B, score):
-        raise ValueError(
-            f"candidate pool of {p} probes x bucket {B} needs "
-            f"{fused_smem_bytes(D, p, B, score)} bytes of shared memory; the "
-            f"limit is {MAX_SMEM_BYTES}"
-        )
-    vec, qsq, stream = _kernel_inputs(
-        vectors, scales, rowid_masked, queries_prep, cids, nsb, D
+    _check_score(vectors, space, score)
+    vec, _, stream = _kernel_inputs(
+        vectors, scales, rowid_masked, queries_prep, cids, nsb, D, qsq=False
     )
     if score == "stub" and not vec:
         raise ValueError("score='stub' copies rows in 16-byte chunks: row bytes "
                          "and the bank's address must be multiples of 16")
-    q_in, qscale = score_query(queries_prep, vectors, space, score)
     out_d = torch.empty((Q, k), dtype=torch.float32, device=vectors.device)
     out_r = torch.empty((Q, k), dtype=torch.int32, device=vectors.device)
     if Q == 0 or k == 0:
         return out_d, out_r
+    _b1_limits(D, p, k)
     from ..kernels.build import load_library
 
-    err = load_library().ivf_search_fused(
-        _DTYPES[vectors.dtype],
-        _SCORES[score],
-        vectors.data_ptr(),
-        scales.data_ptr(),
-        rowid_masked.data_ptr(),
-        q_in.data_ptr(),
-        qsq.data_ptr(),
-        None if qscale is None else qscale.data_ptr(),
-        cids.data_ptr(),
-        nsb.data_ptr(),
-        Q,
-        B,
-        D,
-        p,
-        k,
-        _SPACES[space],
-        int(vectors.dtype == torch.int8),
-        vec,
-        out_d.data_ptr(),
-        out_r.data_ptr(),
-        stream,
-    )
-    _check_launch("ivf_search_fused", err)
-    LAUNCHES["search_fused"] += 1
-    SCORE_LAUNCHES[score] += 1
+    lib = load_library()
+    qc = MAX_PAIRS // p  # queries per work list
+    n = min(Q, qc) * p
+    # work list (3n + 2), partials (2nk), the stub's sink (256)
+    ws = torch.empty(3 * n + 2 + 2 * n * k + 256, dtype=torch.int32, device=vectors.device)
+    for off in range(0, Q, qc):
+        m = min(qc, Q - off)
+        err = lib.ivf_search_fused(
+            _DTYPES[vectors.dtype],
+            _SCORES[score],
+            vectors.data_ptr(),
+            scales.data_ptr(),
+            rowid_masked.data_ptr(),
+            queries_prep[off].data_ptr(),
+            cids[off].data_ptr(),
+            nsb.data_ptr(),
+            m,
+            B,
+            D,
+            p,
+            k,
+            _SPACES[space],
+            int(vectors.dtype == torch.int8),
+            vec,
+            ws.data_ptr(),
+            out_d[off].data_ptr(),
+            out_r[off].data_ptr(),
+            stream,
+        )
+        _check_launch("ivf_search_fused", err)
+        LAUNCHES["search_fused"] += 1
+        SCORE_LAUNCHES[score] += 1
     return out_d, out_r
+
+
+def worklist(cids: torch.Tensor, tile: int = TILE):
+    """B1's work list of a [Q, p] int32 probe list: (order [N], tile_start
+    [N], tile_n [N], n_tiles [1]) with N = Q*p pairs e = q*p + r.  Tile t
+    (t < n_tiles) holds the pairs order[tile_start[t] : + tile_n[t]]: one
+    bucket, at most `tile` pairs; every pair lies in exactly one tile;
+    entries past n_tiles are unused.  Nothing is read back to the host.
+
+    On CPU tensors, the plain version (worklist_plain); on CUDA, the work
+    list kernel B1 launches first, alone (it groups by a hash, so its tile
+    order differs from the plain version's)."""
+    if cids.device.type == "cpu":
+        return worklist_plain(cids, tile)
+    if cids.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cids.device}")
+    N = cids.numel()
+    if tile != TILE or not 0 < N <= MAX_PAIRS:
+        raise ValueError(f"the kernel takes tile {TILE} and 1..{MAX_PAIRS} pairs")
+    cids = cids.to(torch.int32).contiguous()
+    ws = torch.empty(3 * N + 2, dtype=torch.int32, device=cids.device)
+    from ..kernels.build import load_library
+
+    err = load_library().ivf_b1_worklist(
+        cids.data_ptr(), N, ws.data_ptr(), ws[N:].data_ptr(), ws[2 * N :].data_ptr(),
+        ws[3 * N :].data_ptr(), torch.cuda.current_stream(cids.device).cuda_stream,
+    )
+    _check_launch("ivf_b1_worklist", err)
+    return ws[:N], ws[N : 2 * N], ws[2 * N : 3 * N], ws[3 * N : 3 * N + 1]
+
+
+def worklist_plain(cids: torch.Tensor, tile: int = TILE):
+    """worklist() in plain torch: the pairs grouped by bucket in a stable
+    sort of the flat cids, each bucket's run cut into tiles of `tile`,
+    the tiles compacted to the front.  No host synchronisation."""
+    flat = cids.reshape(-1).long()
+    N = flat.numel()
+    order = torch.sort(flat, stable=True)[1]
+    c_sorted = flat[order]
+    i = torch.arange(N, device=flat.device)
+    new_run = torch.ones(N, dtype=torch.bool, device=flat.device)
+    new_run[1:] = c_sorted[1:] != c_sorted[:-1]
+    run_start = torch.cummax(torch.where(new_run, i, 0), dim=0)[0]
+    head = (i - run_start) % tile == 0
+    tix = torch.cumsum(head.long(), 0) - 1  # each pair's tile
+    n_tiles = head.sum().reshape(1)
+    tile_start = torch.zeros(N, dtype=torch.long, device=flat.device)
+    tile_n = torch.zeros(N, dtype=torch.long, device=flat.device)
+    tile_start[tix[head]] = i[head]
+    tile_n.index_add_(0, tix, torch.ones_like(tix))
+    return tuple(t.to(torch.int32) for t in (order, tile_start, tile_n, n_tiles))
+
+
+def split_topk_plain(
+    pool: torch.Tensor, rids: torch.Tensor, p: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1's top-k as its kernels take it, in plain torch: a [Q, p*B] pool
+    (lane r*B + j scores row j of the r-th probed bucket) and its rowids
+    [Q, p*B].  Partials: per (query, rank) the k best (distance, row),
+    ties to the lowest row, INF entries at position INT_MAX; then the
+    merge of the p*k partials in (distance, position r*B + j) order.
+    Returns (dist [Q, k], rowid [Q, k] int32; SENTINEL where INF)."""
+    Q, P = pool.shape
+    B = P // p
+    kk = min(k, B)
+    d, j = topk_ascending_stable(pool.reshape(Q, p, B), kk)  # [Q, p, kk]
+    pos = torch.arange(p, device=pool.device)[None, :, None] * B + j
+    pos = torch.where(torch.isinf(d), _INT_MAX, pos)
+    if kk < k:
+        d = torch.nn.functional.pad(d, (0, k - kk), value=INF)
+        pos = torch.nn.functional.pad(pos, (0, k - kk), value=_INT_MAX)
+    d, pos = d.reshape(Q, p * k), pos.reshape(Q, p * k)
+    perm = lexsort_stable([d, pos])[:, :k]
+    top_d, top_p = torch.gather(d, 1, perm), torch.gather(pos, 1, perm)
+    fin = ~torch.isinf(top_d)
+    top_r = torch.gather(rids, 1, torch.where(fin, top_p, 0))
+    return top_d, torch.where(fin, top_r, SENTINEL).to(torch.int32)
 
 
 def pool_scan_fused(
@@ -346,6 +457,8 @@ def pool_scan_fused(
         code = _DTYPES[vectors.dtype]
     else:
         raise ValueError(f"unsupported bank {vectors.dtype} {tuple(vectors.shape)}")
+    if Q > 65535:
+        raise ValueError(f"query batch {Q} exceeds 65535 (B2's grid)")
     vec, qsq, stream = _kernel_inputs(
         vectors, scales, rowid_masked, queries_prep, cids, nsb, D
     )

@@ -6,55 +6,98 @@
 //   ivf_search_fused  <- _kernel (ivf_pallas.py:128), called by search_fused
 //                        (:418, pallas_call at :500).  Scores every live row
 //                        of each query's p probed buckets and keeps the k
-//                        best (k <= 32), in the TPU kernel's four score
-//                        modes (:153-221):
-//                          f32  (0) f32 dots of the row and the f32 query;
-//                          qi8  (1) int8 rows x the int8-quantized query,
-//                               s8 x s8 -> s32 with __dp4a (the Hopper
-//                               counterpart of the MXU's s8 path), then
-//                               dot * (scale[slot] * qscale[q]): an int32
-//                               dot below 2^24 converts to f32 exactly, so
-//                               the distances equal the TPU kernel's bit
-//                               for bit;
-//                          bf16 (2) int8 rows as exact floats x the query
-//                               rounded to bf16 by the wrapper, products
-//                               summed in f32: the f32 code path;
-//                          stub (3) the copy-floor ablation: every 16-byte
-//                               chunk of a live row is copied into shared
-//                               memory by cp.async, as the TPU's DMA copied
-//                               it, and the row scores element 0 x scale.
+//                        best (k <= 32), in the TPU kernel's four score modes
+//                        (:153-221): f32, qi8, bf16 and stub.
 //   ivf_pool_scan     <- _pool_kernel (ivf_pallas.py:252), called by
 //                        pool_scan_fused (:329, pallas_call at :396).  Same
 //                        scoring, but writes the raw [Q, p*B] distance pool;
 //                        also reads the int4 split-nibble bank.
 //
-// What bounds them on this card: device-memory bytes.  Each query reads the
-// live prefix of its p probed [B, D] buckets once -- p*B*D bytes for an int8
-// bank (half that packed) -- against two flops per byte, far below the
-// H100's compute-to-bandwidth ratio.  The design keeps every other access
-// out of device memory:
-//   * one warp scores one bank row (row_dot, scan_common.cuh); each lane
-//     loads 16 bytes at a time, so
-//     a warp streams 512 contiguous bytes per step;
-//   * the query is staged once per block in shared memory, transposed by
-//     16-byte chunk so that the 32 lanes of a warp read 32 consecutive
-//     floats (no bank conflicts);
-//   * rows past a bucket's live prefix (nsb[c] * 128 rows) and tombstoned
-//     rows (rowid == SENTINEL) are never read -- their distance is INF;
-//   * B1 keeps the [p*B] candidate pool in shared memory and takes k
-//     block-wide argmin passes, ties to the lowest pool position (the order
-//     jnp.argmin gives), so only [k] results reach device memory.
+// What bounds them on this card: device-memory bytes.  A probed bucket's
+// live prefix is B*D bytes (int8) against a few operations per byte, far
+// below the H100's ~300 operations per byte of bandwidth.
+//
+// B1 (ivf_search_fused) is three launches on the caller's stream:
+//
+//   1. b1_worklist (one block): groups the Q*p (query, rank) pairs by the
+//      bucket they probe, in a shared-memory hash of the bucket ids, and cuts
+//      each bucket's pairs into tiles of at most kTile = 16.  It writes the
+//      tile list and its length to device memory: no size goes back to the
+//      host, so the launch needs no synchronisation.  Which pairs share a
+//      tile depends on the order of the atomics, never the results: each
+//      pair's top-k is exact on its own.
+//   2. b1_scan (persistent: one wave of blocks that take tiles from an
+//      atomic counter): a tile reads its bucket's live prefix from device
+//      memory ONCE for all its pairs.  The old design (one block per query)
+//      read a bucket once per query that probed it: 7 of every 8 row bytes at
+//      phase 1's shapes, 46% on the bench-geometry index.
+//      Scoring on int8 banks runs on the tensor cores, mma.sync
+//      m16n8k32 s8 x s8 -> s32: a warp takes 16 rows x the tile's queries,
+//      each lane loading 16 contiguous bytes of a row per step straight into
+//      its A fragment (the k order inside a step is permuted the same way on
+//      the query side, which the dot product does not see), so no row byte
+//      is converted, staged or read from shared memory:
+//        qi8  the query's int8 codes (ivf_pallas.py:454-459, computed here
+//             in the same f32 operations) are the B operand; the int32 dot
+//             is exact and scaled as dot * (scale * qscale) by __fmul_rn,
+//             so the distances equal the TPU kernel's bit for bit;
+//        f32  the f32 query is cut into four signed int8 digits at a power
+//             of two (q = 2^e * (d1 + d2/2^7 + d3/2^14 + d4/2^21), |d| <=
+//             64), four MMAs per step whose exact int32 sums are combined in
+//             int64 and rounded once to f32: 27 bits of the query's
+//             significand, more than f32's 24, for the largest elements;
+//             the error is ~1e-8 of a cosine distance.  No TF32.
+//        bf16 the same path on the query rounded to bf16 (f32's RN, as the
+//             wrapper of the TPU kernel rounds it);
+//        l2   |x|^2 per row from __dp4a on the fragments already in
+//             registers, only in the l2 instantiation;
+//        stub the copy floor of this design: the same tiles and loads (their
+//             words XOR-folded and stored to a device-memory sink, or the
+//             compiler drops them), no MMA, a row scoring element 0 x scale.
+//      bf16 and f32 banks, and int8 rows that are not 16-byte aligned, keep
+//      CUDA-core scoring (one warp per row, f32 FMAs against the tile's
+//      queries in shared memory) inside the same tiles and top-k: their
+//      rows are not exact in int8 and they are not the serving path.
+//      Each tile keeps a running top-k of (distance, row) per pair in the
+//      registers of one warp (lane i holds entry i; of each 32 rows, the
+//      candidates that beat entry k-1 are inserted one by one by ballot and
+//      shuffle, or, kMergeMin or more of them, sorted and merged
+//      bitonically), fed 128 rows (one live-prefix sub-block) at a time
+//      through a double-buffered score block in shared memory, and writes
+//      [Q, p, k] partials.
+//   3. b1_merge (one warp per query): the p sorted partial lists merge to k
+//      in (distance, pool position r*B + j) order, ties to the lowest
+//      position as jnp.argmin gives; position -> rowid, SENTINEL where INF.
+//      Exact: the top k of a union under a total order is the top k of the
+//      parts' top k.  The [p*B] pool in shared memory of the old design is
+//      gone, and with it its cap on p*B: a block's shared memory now depends
+//      on D alone (kMaxDims).
+//
+// Decided by measurement on the H100 (PERF.md, PR 4): rows go from device
+// memory straight into registers, eight 16-byte loads in flight a lane,
+// two blocks per SM.  A per-warp cp.async ring in shared memory was slower
+// at every shape (its shared memory leaves one block per SM, and a tile's
+// serial steps -- fetch, query staging, barriers -- lose the second
+// block's overlap), and so were four or sixteen loads in flight a lane
+// (U = 2, 8) and three blocks per SM (registers spill); tiles of 8 pairs
+// were no faster.  What bounds the design: its copy alone (the stub) takes
+// about 0.8 of B1's time, at 0.47-0.72 of the bound; the rest is scoring
+// and the top-k.
+//
+// Rows past a bucket's live prefix (nsb[c] * 128 rows) and tombstoned rows
+// (rowid == SENTINEL) are never read: their distance is INF.
 //
 // Distances (ascending): cosine 1 - s*(x.q), dot -s*(x.q),
 // l2 |q|^2 + s^2|x|^2 - 2s*(x.q); the row scale s applies to int8 and
-// packed banks only (packed: s * 127/7).  Sums are f32, in another order
-// than the plain PyTorch versions.
+// packed banks only (packed: s * 127/7).  Sums are f32 (or exact integers),
+// in another order than the plain PyTorch versions.
 //
-// Neither kernel allocates: the caller passes every buffer.  Both launch on
-// the caller's stream and return cudaGetLastError() of the launch.
+// No kernel allocates: the caller passes every buffer.  All launch on the
+// caller's stream and the entry points return cudaGetLastError().
 
 #include <math_constants.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -64,60 +107,43 @@ namespace {
 
 constexpr int kSentinel = INT_MAX;  // "no row" id (vector_store_tpu core/topk.py)
 constexpr int kSubBlock = 128;      // live-prefix granularity (ivf_pallas.SB)
-constexpr int kFusedThreads = 512;
 constexpr int kPoolThreads = 256;
 constexpr float kInt4Scale = 127.0f / 7.0f;
 enum Score { kScoreF32 = 0, kScoreQi8 = 1, kScoreBf16 = 2, kScoreStub = 3 };
 
+// B1's geometry
+constexpr int kTile = 16;                 // pairs per tile: two mma N-blocks of 8
+constexpr int kScanWarps = kSubBlock / 16;  // a warp scores 16 rows (one mma M-block)
+constexpr int kScanThreads = kScanWarps * 32;
+constexpr int kWorkThreads = 1024;
+constexpr int kMaxPairs = 8192;           // Q*p of one work list (ivf_cuda.MAX_PAIRS)
+constexpr int kPairsPerThread = kMaxPairs / kWorkThreads;
+constexpr int kMergeWarps = 4;
+constexpr int kDigits = 4;                // int8 digits of an f32 query
+constexpr int kMaxDims = 3072;            // ivf_cuda.FUSED_MAX_DIMS
+constexpr unsigned kFull = 0xffffffffu;
+// candidates of a 32-row step that beat entry k-1: at least this many are
+// merged by a bitonic sort and merge, fewer are inserted one at a time
+constexpr int kMergeMin = 4;
+
 __device__ __forceinline__ int warp_sum_i(int v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-// qi8: this lane's share of the s8 x s8 -> s32 dot of an int8 row with the
-// int8 query staged (in order) in shared memory, four bytes per __dp4a.
-__device__ __forceinline__ int row_dot_i8(const int8_t* __restrict__ row,
-                                          const int8_t* __restrict__ q8, int D, int n4,
-                                          int lane) {
-  int acc = 0;
-  const uint4* r4 = reinterpret_cast<const uint4*>(row);
-  const uint4* q4 = reinterpret_cast<const uint4*>(q8);
-  for (int c = lane; c < n4; c += 32) {
-    const uint4 u = __ldg(r4 + c);
-    const uint4 v = q4[c];
-    acc = __dp4a(static_cast<int>(u.x), static_cast<int>(v.x), acc);
-    acc = __dp4a(static_cast<int>(u.y), static_cast<int>(v.y), acc);
-    acc = __dp4a(static_cast<int>(u.z), static_cast<int>(v.z), acc);
-    acc = __dp4a(static_cast<int>(u.w), static_cast<int>(v.w), acc);
-  }
-  for (int i = 16 * n4 + lane; i < D; i += 32) {
-    acc += static_cast<int>(row[i]) * static_cast<int>(q8[i]);
-  }
-  return acc;
-}
-
-// stub: copy every 16-byte chunk of the row into shared memory with
-// cp.async (a copy the compiler cannot drop), chunk 0 into the warp's own
-// slot and the rest into the lane's; returns element 0 of the copy on lane 0.
-template <typename T>
-__device__ __forceinline__ float row_copy_first(const T* __restrict__ row, uint4* lane_slot,
-                                                uint4* warp_slot, int n4, int lane) {
-  const uint4* r4 = reinterpret_cast<const uint4*>(row);
-  for (int c = lane; c < n4; c += 32) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(c == 0 ? warp_slot : lane_slot));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(r4 + c) : "memory");
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  return lane == 0 ? to_f(reinterpret_cast<const T*>(warp_slot)[0]) : 0.0f;
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
 }
 
 // Lexicographic (distance, position) minimum across the warp.
 __device__ __forceinline__ void warp_argmin(float& d, int& i) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float od = __shfl_xor_sync(0xffffffffu, d, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    const float od = __shfl_xor_sync(kFull, d, o);
+    const int oi = __shfl_xor_sync(kFull, i, o);
     if (od < d || (od == d && oi < i)) {
       d = od;
       i = oi;
@@ -125,109 +151,609 @@ __device__ __forceinline__ void warp_argmin(float& d, int& i) {
   }
 }
 
-// B1: one block per query.  grid (Q), block kFusedThreads, dynamic shared
-// memory (D + p*B) floats; the stub mode adds a 16-byte copy slot per
-// thread and per warp after it.  `queries` is [Q, D] f32, or int8 codes in
-// the qi8 mode, whose per-query scales are `qscale`.
-template <typename T, int SCORE>
-__global__ void __launch_bounds__(kFusedThreads)
-    search_fused_kernel(const T* __restrict__ vectors, const float* __restrict__ scales,
-                        const int32_t* __restrict__ rowid, const void* __restrict__ queries,
-                        const float* __restrict__ qsq, const float* __restrict__ qscale,
-                        const int32_t* __restrict__ cids, const int32_t* __restrict__ nsb, int B,
-                        int D, int n4, int p, int k, int space, int scaled,
-                        float* __restrict__ out_d, int32_t* __restrict__ out_r) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;        // [D] staged query (int8 codes in the qi8 mode)
-  float* pool = smem + D;  // [p*B] candidate distances
-  __shared__ float red_d[kFusedThreads / 32];
-  __shared__ int red_i[kFusedThreads / 32];
+// ---------------------------------------------------------------------------
+// B1: work list
 
-  const int qi = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int P = p * B;
-  uint4* slots = nullptr;  // stub: [nthreads] lane slots, then [nwarps] warp slots
-  if constexpr (SCORE == kScoreQi8) {
-    const int8_t* src = static_cast<const int8_t*>(queries) + static_cast<size_t>(qi) * D;
-    int8_t* q8 = reinterpret_cast<int8_t*>(qs);
-    for (int i = threadIdx.x; i < D; i += blockDim.x) q8[i] = src[i];
-  } else if constexpr (SCORE == kScoreStub) {
-    const size_t off = (static_cast<size_t>(D + P) * sizeof(float) + 15) & ~static_cast<size_t>(15);
-    slots = reinterpret_cast<uint4*>(reinterpret_cast<char*>(smem) + off);
-  } else {
-    stage_query<T, false>(static_cast<const float*>(queries) + static_cast<size_t>(qi) * D, qs,
-                          D, n4);
+// Block-wide exclusive prefix sum of one int per thread (kWorkThreads
+// threads); `total` receives the sum.  `scratch` holds 32 ints.
+__device__ int block_exclusive_sum(int v, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
   }
-  for (int i = threadIdx.x; i < P; i += blockDim.x) pool[i] = CUDART_INF_F;
+  if (lane == 31) scratch[warp] = incl;
   __syncthreads();
-
-  const float q2 = qsq[qi];
-  float qscl = 1.0f;
-  if constexpr (SCORE == kScoreQi8) qscl = qscale[qi];
-  for (int r = 0; r < p; ++r) {
-    const int c = cids[qi * p + r];
-    const int live = min(nsb[c] * kSubBlock, B);
-    for (int j = warp; j < live; j += nwarps) {
-      const size_t slot = static_cast<size_t>(c) * B + j;
-      if (rowid[slot] == kSentinel) continue;  // tombstone: stays INF
-      float d;
-      if constexpr (SCORE == kScoreQi8) {
-        const int dot = warp_sum_i(row_dot_i8(reinterpret_cast<const int8_t*>(vectors + slot * D),
-                                              reinterpret_cast<const int8_t*>(qs), D, n4, lane));
-        // the TPU kernel's order: (scale * qscale), then dot * that; no FMA
-        const float v = __fmul_rn(static_cast<float>(dot), __fmul_rn(scales[slot], qscl));
-        d = space == kDot ? -v : 1.0f - v;
-      } else if constexpr (SCORE == kScoreStub) {
-        const float x0 = row_copy_first<T>(vectors + slot * D, slots + threadIdx.x,
-                                           slots + blockDim.x + warp, n4, lane);
-        d = __fmul_rn(x0, scales[slot]);
-      } else {
-        float dot = 0.0f, sq = 0.0f;
-        row_dot<T, false>(vectors + slot * D, qs, D, n4, lane, dot, sq);
-        dot = warp_sum(dot);
-        sq = warp_sum(sq);
-        d = row_distance(dot, sq, scaled ? scales[slot] : 1.0f, q2, space);
-      }
-      if (lane == 0) pool[r * B + j] = d;
+  if (warp == 0) {
+    int w = scratch[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += u;
     }
+    scratch[lane] = w;
+  }
+  __syncthreads();
+  total = scratch[31];
+  const int out = incl - v + (warp > 0 ? scratch[warp - 1] : 0);
+  __syncthreads();  // scratch is reused by the next call
+  return out;
+}
+
+// One block of kWorkThreads; dynamic shared memory 2 * H ints (H a power of
+// two >= 2N, 2^hbits).  Pair e = q*p + r probes bucket cids[e].  Writes
+// order[N] (pairs grouped by bucket, each bucket's pairs contiguous),
+// tile_start[t] / tile_n[t] for t < meta[0] (tile t is order[tile_start[t]
+// .. + tile_n[t]), one bucket, at most kTile pairs), and meta[1] = 0 (the
+// scan's tile counter).
+__global__ void __launch_bounds__(kWorkThreads)
+    b1_worklist_kernel(const int32_t* __restrict__ cids, int N, int hbits,
+                       int32_t* __restrict__ order, int32_t* __restrict__ tile_start,
+                       int32_t* __restrict__ tile_n, int32_t* __restrict__ meta) {
+  extern __shared__ int32_t wsm[];
+  const int H = 1 << hbits;
+  int32_t* key = wsm;     // bucket id per hash slot (-1 empty); later the slot's first tile
+  int32_t* cnt = wsm + H;  // pairs per slot
+  __shared__ int scratch[32];
+  for (int i = threadIdx.x; i < H; i += kWorkThreads) {
+    key[i] = -1;
+    cnt[i] = 0;
   }
   __syncthreads();
 
-  // k extract-min passes over the pool; ties go to the lowest position
-  for (int t = 0; t < k; ++t) {
-    float bd = CUDART_INF_F;
-    int bi = INT_MAX;
-    for (int i = threadIdx.x; i < P; i += blockDim.x) {
-      const float v = pool[i];
-      if (v < bd) {
-        bd = v;
-        bi = i;
+  int slot[kPairsPerThread], rank[kPairsPerThread];
+#pragma unroll
+  for (int m = 0; m < kPairsPerThread; ++m) {
+    const int e = threadIdx.x + m * kWorkThreads;
+    slot[m] = -1;
+    rank[m] = 0;
+    if (e < N) {
+      const int c = cids[e];
+      unsigned h = (static_cast<unsigned>(c) * 2654435761u) >> (32 - hbits);
+      for (;;) {
+        const int prev = atomicCAS(&key[h], -1, c);
+        if (prev == -1 || prev == c) break;
+        h = (h + 1) & (H - 1);
       }
+      slot[m] = static_cast<int>(h);
+      rank[m] = atomicAdd(&cnt[h], 1);
     }
-    warp_argmin(bd, bi);
-    if (lane == 0) {
-      red_d[warp] = bd;
-      red_i[warp] = bi;
+  }
+  __syncthreads();
+
+  // each thread owns `per` consecutive slots: their tiles and pairs, scanned
+  const int per = (H + kWorkThreads - 1) / kWorkThreads;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, H), hi = min(lo + per, H);
+  int tiles = 0, pairs = 0;
+  for (int s = lo; s < hi; ++s) {
+    tiles += (cnt[s] + kTile - 1) / kTile;
+    pairs += cnt[s];
+  }
+  int n_tiles, n_pairs;  // n_pairs == N
+  int tbase = block_exclusive_sum(tiles, scratch, n_tiles);
+  int pbase = block_exclusive_sum(pairs, scratch, n_pairs);
+  (void)n_pairs;
+  for (int s = lo; s < hi; ++s) {  // key[s] becomes the slot's first pair; cnt keeps the count
+    const int c = cnt[s];
+    key[s] = pbase;
+    pbase += c;
+    for (int t = 0; t < c; t += kTile) {
+      tile_start[tbase] = key[s] + t;
+      tile_n[tbase] = min(kTile, c - t);
+      ++tbase;
     }
-    __syncthreads();
-    if (warp == 0) {
-      bd = lane < nwarps ? red_d[lane] : CUDART_INF_F;
-      bi = lane < nwarps ? red_i[lane] : INT_MAX;
-      warp_argmin(bd, bi);
-      if (lane == 0) {
-        int rid = kSentinel;
-        if (bi < P) {  // a finite candidate was left
-          pool[bi] = CUDART_INF_F;
-          rid = rowid[static_cast<size_t>(cids[qi * p + bi / B]) * B + bi % B];
-        }
-        out_d[qi * k + t] = bd;
-        out_r[qi * k + t] = rid;
-      }
-    }
-    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    meta[0] = n_tiles;
+    meta[1] = 0;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < kPairsPerThread; ++m) {
+    if (slot[m] >= 0) order[key[slot[m]] + rank[m]] = threadIdx.x + m * kWorkThreads;
   }
 }
 
+// ---------------------------------------------------------------------------
+// B1: scan
+
+__device__ __forceinline__ bool lex_less(float ad, int aj, float bd, int bj) {
+  return ad < bd || (ad == bd && aj < bj);
+}
+
+// Insert (xd, xj) into the sorted list held one entry per lane.
+__device__ __forceinline__ void list_insert(float& md, int& mj, float xd, int xj, int lane) {
+  const int pos = __popc(__ballot_sync(kFull, lex_less(md, mj, xd, xj)));
+  const float ud = __shfl_up_sync(kFull, md, 1);
+  const int uj = __shfl_up_sync(kFull, mj, 1);
+  if (lane == pos) {
+    md = xd;
+    mj = xj;
+  } else if (lane > pos) {
+    md = ud;
+    mj = uj;
+  }
+}
+
+// Sort (d, j), one per lane, ascending across the warp (bitonic).
+__device__ __forceinline__ void warp_sort(float& d, int& j, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float od = __shfl_xor_sync(kFull, d, stride);
+      const int oj = __shfl_xor_sync(kFull, j, stride);
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      if (keep_min == lex_less(od, oj, d, j)) {
+        d = od;
+        j = oj;
+      }
+    }
+  }
+}
+
+// Merge the candidates (d, j), one per lane (INF, INT_MAX where none), into
+// the sorted list (md, mj): the lower half of the list against the sorted
+// candidates reversed is bitonic and holds the 32 smallest; five steps sort it.
+__device__ __forceinline__ void list_merge(float& md, int& mj, float d, int j, int lane) {
+  warp_sort(d, j, lane);
+  const float rd = __shfl_sync(kFull, d, 31 - lane);
+  const int rj = __shfl_sync(kFull, j, 31 - lane);
+  if (lex_less(rd, rj, md, mj)) {
+    md = rd;
+    mj = rj;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const float od = __shfl_xor_sync(kFull, md, stride);
+    const int oj = __shfl_xor_sync(kFull, mj, stride);
+    if (((lane & stride) == 0) == lex_less(od, oj, md, mj)) {
+      md = od;
+      mj = oj;
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                       unsigned a3, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// sum of the squares of 16 signed bytes, added to acc
+__device__ __forceinline__ int sq_s8(uint4 u, int acc) {
+  const int x = static_cast<int>(u.x), y = static_cast<int>(u.y);
+  const int z = static_cast<int>(u.z), w = static_cast<int>(u.w);
+  return __dp4a(x, x, __dp4a(y, y, __dp4a(z, z, __dp4a(w, w, acc))));
+}
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// the stub's copy: the same 16-byte load, folded into `fold`, which the
+// caller stores to device memory (`sink`) so that no load is dead code
+__device__ __forceinline__ unsigned ld16_fold(const void* p, unsigned fold) {
+  const uint4 u = ld16(p);
+  return fold ^ u.x ^ u.y ^ u.z ^ u.w;
+}
+
+// x * 2^e for any e, exact while the result is normal
+__device__ __forceinline__ float scale2(float x, float f, int e) {
+  return (e >= -126 && e <= 127) ? x * f : ldexpf(x, e);
+}
+
+__device__ __forceinline__ float query_value(float x, int score) {
+  return score == kScoreBf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+struct TileMeta {
+  int e[kTile];      // pair id q*p + r
+  float fac[kTile];  // f32 digits: 2^(e - 21); qi8: the query's scale
+  float q2[kTile];   // |q|^2 (l2)
+  int tile;
+};
+
+// Stage the tile's queries: warp w takes pairs w and w + kScanWarps.
+//   MMA:  qd[digit][t][qstride] int8 digits (f32/bf16) or codes (qi8);
+//   core: qf[t][D] f32 (rounded to bf16 in the bf16 mode) or int8 codes (qi8).
+template <bool MMA, int SCORE>
+__device__ void stage_tile(const float* __restrict__ queries, int D, int p, int n, int qstride,
+                           int8_t* qd, float* qf, TileMeta& tm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < n; t += kScanWarps) {
+    const float* q = queries + static_cast<size_t>(tm.e[t] / p) * D;
+    float m = 0.0f, s2 = 0.0f;
+    for (int i = lane; i < D; i += 32) {
+      const float x = query_value(q[i], SCORE);
+      m = fmaxf(m, fabsf(x));
+      s2 = fmaf(x, x, s2);
+    }
+    m = warp_max(m);
+    s2 = warp_sum(s2);
+    if constexpr (SCORE == kScoreStub) {
+      // nothing to stage: a row scores element 0 x scale
+    } else if constexpr (SCORE == kScoreQi8) {
+      // ivf_pallas.py:454-459: qs = max(max|q|, 1e-30) / 127, codes =
+      // clip(round(q / qs), -127, 127), round half to even
+      const float qs = __fdiv_rn(fmaxf(m, 1e-30f), 127.0f);
+      int8_t* dst = MMA ? qd + t * qstride : reinterpret_cast<int8_t*>(qf) + t * D;
+      for (int i = lane; i < D; i += 32) {
+        const float c = fminf(fmaxf(rintf(__fdiv_rn(q[i], qs)), -127.0f), 127.0f);
+        dst[i] = static_cast<int8_t>(c);
+      }
+      if (lane == 0) tm.fac[t] = qs;
+    } else if constexpr (MMA) {
+      // q = 2^e * (d1 + d2 2^-7 + d3 2^-14 + d4 2^-21): m * 2^-e in [32, 64)
+      const int e = m > 0.0f ? ilogbf(m) - 5 : 0;
+      const float down = ldexpf(1.0f, -e);
+      for (int i = lane; i < D; i += 32) {
+        float v = scale2(query_value(q[i], SCORE), down, -e);
+#pragma unroll
+        for (int dg = 0; dg < kDigits; ++dg) {
+          const float d = rintf(v);  // |d| <= 64
+          qd[(dg * kTile + t) * qstride + i] = static_cast<int8_t>(d);
+          v = (v - d) * 128.0f;  // both exact
+        }
+      }
+      if (lane == 0) tm.fac[t] = ldexpf(1.0f, e - 7 * (kDigits - 1));
+    } else {
+      for (int i = lane; i < D; i += 32) qf[t * D + i] = query_value(q[i], SCORE);
+    }
+    if (lane == 0) tm.q2[t] = s2;
+  }
+}
+
+// One B1 scan block.  MMA: int8 rows on the tensor cores (T = int8, vec);
+// else CUDA-core scoring.  Dynamic shared memory: sc [2][kTile][kSubBlock]
+// f32, then the staged queries (b1_query_smem).
+template <typename T, int SCORE, bool L2, bool MMA>
+__global__ void __launch_bounds__(kScanThreads, 2)
+    b1_scan_kernel(const T* __restrict__ vectors, const float* __restrict__ scales,
+                   const int32_t* __restrict__ rowid, const float* __restrict__ queries,
+                   const int32_t* __restrict__ cids, const int32_t* __restrict__ nsb,
+                   const int32_t* __restrict__ order, const int32_t* __restrict__ tile_start,
+                   const int32_t* __restrict__ tile_n, int32_t* __restrict__ meta, int B, int D,
+                   int p, int k, int space, int scaled, int qstride, float* __restrict__ part_d,
+                   int32_t* __restrict__ part_p, unsigned* __restrict__ sink) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sc = reinterpret_cast<float*>(smem_raw);
+  void* qstage = smem_raw + 2 * kTile * kSubBlock * sizeof(float);
+  int8_t* qd = static_cast<int8_t*>(qstage);
+  float* qf = static_cast<float*>(qstage);
+  __shared__ TileMeta tm;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int n_tiles = meta[0];
+
+  for (;;) {
+    if (threadIdx.x == 0) tm.tile = atomicAdd(&meta[1], 1);
+    __syncthreads();
+    const int tile = tm.tile;
+    if (tile >= n_tiles) break;
+    const int s0 = tile_start[tile], n = tile_n[tile];
+    if (threadIdx.x < n) tm.e[threadIdx.x] = order[s0 + threadIdx.x];
+    __syncthreads();
+    stage_tile<MMA, SCORE>(queries, D, p, n, qstride, qd, qf, tm);
+    __syncthreads();
+
+    const int c = cids[tm.e[0]];  // every pair of a tile probes this bucket
+    const int live = min(nsb[c] * kSubBlock, B);
+    const size_t cbase = static_cast<size_t>(c) * B;
+    // warp w keeps the running top-k of pairs w and w + kScanWarps
+    float ld[2] = {CUDART_INF_F, CUDART_INF_F}, td[2] = {CUDART_INF_F, CUDART_INF_F};
+    int lj[2] = {INT_MAX, INT_MAX}, tj[2] = {INT_MAX, INT_MAX};
+    int buf = 0;
+    // tensor-core path: the rowids of rows g and g + 8 of this warp's 16,
+    // read one sub-block ahead so that no row load waits on them
+    const int rw = warp * 16 + g;
+    int nrid0 = kSentinel, nrid1 = kSentinel;
+    if constexpr (MMA) {
+      if (rw < live) nrid0 = rowid[cbase + rw];
+      if (rw + 8 < live) nrid1 = rowid[cbase + rw + 8];
+    }
+    for (int base = 0; base < live; base += kSubBlock) {
+      float* scb = sc + buf * kTile * kSubBlock;
+      if constexpr (MMA) {
+        // rows g and g + 8 of this warp's 16-row block
+        const int r0 = base + rw, r1 = r0 + 8;
+        const bool v0 = r0 < live && nrid0 != kSentinel;
+        const bool v1 = r1 < live && nrid1 != kSentinel;
+        nrid0 = r0 + kSubBlock < live ? rowid[cbase + r0 + kSubBlock] : kSentinel;
+        nrid1 = r1 + kSubBlock < live ? rowid[cbase + r1 + kSubBlock] : kSentinel;
+        // the scales now, used after the dots
+        const float s0r = v0 ? (scaled ? scales[cbase + r0] : 1.0f) : 0.0f;
+        const float s1r = v1 ? (scaled ? scales[cbase + r1] : 1.0f) : 0.0f;
+        const int8_t* row0 = reinterpret_cast<const int8_t*>(vectors) + (cbase + r0) * D;
+        const int8_t* row1 = reinterpret_cast<const int8_t*>(vectors) + (cbase + r1) * D;
+        float d[2][4];  // [row g, g+8][pair h*8 + tig*2 + {0,1}, h = 0, 1]
+        constexpr bool kStub = SCORE == kScoreStub;
+        constexpr int ND = SCORE == kScoreQi8 ? 1 : kDigits;
+        int acc[ND][2][4];
+#pragma unroll
+        for (int dg = 0; dg < ND; ++dg)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[dg][h][i] = 0;
+        int sq0 = 0, sq1 = 0;
+        unsigned fold = 0;  // the stub's copy
+        const bool two = n > 8;
+        if (__any_sync(kFull, v0 || v1)) {
+          // 64 bytes of each row per span, 4 spans per group: 8 loads in flight
+          constexpr int U = 4;
+          for (int span = 0; span < D; span += 64 * U) {
+            uint4 a[U], b[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              const int off = span + u * 64 + tig * 16;
+              a[u] = (v0 && off < D) ? ld16(row0 + off) : make_uint4(0, 0, 0, 0);
+              b[u] = (v1 && off < D) ? ld16(row1 + off) : make_uint4(0, 0, 0, 0);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              if (span + u * 64 >= D) break;  // warp-uniform: the span is past D
+              if constexpr (kStub) {
+                fold ^= a[u].x ^ a[u].y ^ a[u].z ^ a[u].w ^ b[u].x ^ b[u].y ^ b[u].z ^ b[u].w;
+                continue;
+              }
+              const int off = span + u * 64 + tig * 16;
+              if constexpr (L2) {
+                sq0 = sq_s8(a[u], sq0);
+                sq1 = sq_s8(b[u], sq1);
+              }
+#pragma unroll
+              for (int dg = 0; dg < ND; ++dg) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  if (h == 1 && !two) break;
+                  const uint4 qv = *reinterpret_cast<const uint4*>(
+                      qd + (dg * kTile + h * 8 + g) * qstride + off);
+                  // A: a0 row g, a1 row g+8, a2/a3 their next 4 bytes; the
+                  // same byte order for the query (B) column g
+                  mma_s8(acc[dg][h], a[u].x, b[u].x, a[u].y, b[u].y, qv.x, qv.y);
+                  mma_s8(acc[dg][h], a[u].z, b[u].z, a[u].w, b[u].w, qv.z, qv.w);
+                }
+              }
+            }
+          }
+        }
+        if constexpr (kStub) {
+          sink[threadIdx.x] = fold;  // keeps the loads: the compiler drops unread ones
+          const float x0 = v0 ? __fmul_rn(static_cast<float>(row0[0]), s0r) : 0.0f;
+          const float x1 = v1 ? __fmul_rn(static_cast<float>(row1[0]), s1r) : 0.0f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            d[0][i] = v0 ? x0 : CUDART_INF_F;
+            d[1][i] = v1 ? x1 : CUDART_INF_F;
+          }
+        } else {
+          if constexpr (L2) {  // sum the four lanes of each row group
+            sq0 += __shfl_xor_sync(kFull, sq0, 1);
+            sq0 += __shfl_xor_sync(kFull, sq0, 2);
+            sq1 += __shfl_xor_sync(kFull, sq1, 1);
+            sq1 += __shfl_xor_sync(kFull, sq1, 2);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const int t = h * 8 + tig * 2 + cc;
+#pragma unroll
+              for (int ri = 0; ri < 2; ++ri) {
+                const int ci = ri * 2 + cc;
+                const bool v = ri == 0 ? v0 : v1;
+                float dist = CUDART_INF_F;
+                if (v && t < n) {
+                  const float s = ri == 0 ? s0r : s1r;
+                  if constexpr (SCORE == kScoreQi8) {
+                    // the TPU kernel's order: (scale * qscale), then dot * that
+                    const float val = __fmul_rn(static_cast<float>(acc[0][h][ci]),
+                                                __fmul_rn(s, tm.fac[t]));
+                    dist = space == kDot ? -val : __fsub_rn(1.0f, val);
+                  } else {
+                    long long S = 0;
+#pragma unroll
+                    for (int dg = 0; dg < ND; ++dg) S = S * 128 + acc[dg][h][ci];
+                    const float dot = __fmul_rn(__ll2float_rn(S), tm.fac[t]);
+                    const float sq = static_cast<float>(ri == 0 ? sq0 : sq1);
+                    dist = row_distance(dot, sq, s, tm.q2[t], L2 ? kL2 : space);
+                  }
+                }
+                d[ri][h * 2 + cc] = dist;
+              }
+            }
+          }
+        }
+        const int rl = warp * 16 + g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int t = h * 8 + tig * 2 + cc;
+            if (t < n) {
+              scb[t * kSubBlock + rl] = d[0][h * 2 + cc];
+              scb[t * kSubBlock + rl + 8] = d[1][h * 2 + cc];
+            }
+          }
+        }
+      } else {
+        // CUDA cores: warp w scores rows base + w*16 .. +15, one at a time,
+        // against every pair of the tile
+        for (int i = 0; i < 16; ++i) {
+          const int rl = warp * 16 + i, r = base + rl;
+          const bool v = r < live && rowid[cbase + r] != kSentinel;
+          const T* row = vectors + (cbase + r) * D;
+          if (!v) {
+            if (lane < n) scb[lane * kSubBlock + rl] = CUDART_INF_F;
+            continue;
+          }
+          const float s = scaled ? scales[cbase + r] : 1.0f;
+          if constexpr (SCORE == kScoreStub) {
+            unsigned fold = 0;
+            for (int off = lane * 16; off < D * static_cast<int>(sizeof(T)); off += 512)
+              fold = ld16_fold(reinterpret_cast<const char*>(row) + off, fold);
+            sink[threadIdx.x] = fold;
+            const float x0 = __fmul_rn(to_f(row[0]), scales[cbase + r]);
+            if (lane < n) scb[lane * kSubBlock + rl] = x0;
+          } else if constexpr (SCORE == kScoreQi8) {
+            const int8_t* q8 = reinterpret_cast<const int8_t*>(qf);
+            int acc[kTile];
+#pragma unroll
+            for (int t = 0; t < kTile; ++t) acc[t] = 0;
+            for (int e = lane; e < D; e += 32) {
+              const int x = static_cast<int>(row[e]);
+#pragma unroll
+              for (int t = 0; t < kTile; ++t)
+                if (t < n) acc[t] += x * static_cast<int>(q8[t * D + e]);
+            }
+#pragma unroll
+            for (int t = 0; t < kTile; ++t) {
+              if (t < n) {
+                const int dot = warp_sum_i(acc[t]);
+                const float val = __fmul_rn(static_cast<float>(dot), __fmul_rn(s, tm.fac[t]));
+                if (lane == 0) scb[t * kSubBlock + rl] = space == kDot ? -val : __fsub_rn(1.0f, val);
+              }
+            }
+          } else {
+            float acc[kTile];
+#pragma unroll
+            for (int t = 0; t < kTile; ++t) acc[t] = 0.0f;
+            float sq = 0.0f;
+            for (int e = lane; e < D; e += 32) {
+              const float x = to_f(row[e]);
+              if constexpr (L2) sq = fmaf(x, x, sq);
+#pragma unroll
+              for (int t = 0; t < kTile; ++t)
+                if (t < n) acc[t] = fmaf(x, qf[t * D + e], acc[t]);
+            }
+            if constexpr (L2) sq = warp_sum(sq);
+#pragma unroll
+            for (int t = 0; t < kTile; ++t) {
+              if (t < n) {
+                const float dot = warp_sum(acc[t]);
+                if (lane == 0)
+                  scb[t * kSubBlock + rl] = row_distance(dot, sq, s, tm.q2[t], L2 ? kL2 : space);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // fold this sub-block into each pair's running top-k
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        const int t = warp + sl * kScanWarps;
+        if (t < n) {
+          const float* col = scb + t * kSubBlock;
+#pragma unroll
+          for (int i = 0; i < kSubBlock / 32; ++i) {
+            const float dv = col[lane + 32 * i];
+            const int j = base + lane + 32 * i;
+            const bool pass = dv != CUDART_INF_F && lex_less(dv, j, td[sl], tj[sl]);
+            unsigned mask = __ballot_sync(kFull, pass);
+            if (__popc(mask) >= kMergeMin) {
+              list_merge(ld[sl], lj[sl], pass ? dv : CUDART_INF_F, pass ? j : INT_MAX, lane);
+              td[sl] = __shfl_sync(kFull, ld[sl], k - 1);
+              tj[sl] = __shfl_sync(kFull, lj[sl], k - 1);
+              mask = 0;
+            }
+            while (mask) {
+              const int src = __ffs(mask) - 1;
+              mask &= mask - 1;
+              const float xd = __shfl_sync(kFull, dv, src);
+              const int xj = __shfl_sync(kFull, j, src);
+              if (lex_less(xd, xj, td[sl], tj[sl])) {
+                list_insert(ld[sl], lj[sl], xd, xj, lane);
+                td[sl] = __shfl_sync(kFull, ld[sl], k - 1);
+                tj[sl] = __shfl_sync(kFull, lj[sl], k - 1);
+              }
+            }
+          }
+        }
+      }
+      buf ^= 1;  // the next sub-block scores into the other buffer
+    }
+
+    // partials: entry i of pair e = q*p + r at e*k + i, position r*B + j
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl) {
+      const int t = warp + sl * kScanWarps;
+      if (t < n && lane < k) {
+        const int e = tm.e[t];
+        const size_t o = static_cast<size_t>(e) * k + lane;
+        part_d[o] = ld[sl];
+        part_p[o] = ld[sl] == CUDART_INF_F ? INT_MAX : (e % p) * B + lj[sl];
+      }
+    }
+    __syncthreads();  // tm and the staged queries are rewritten by the next tile
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1: merge
+
+// One warp per query; dynamic shared memory kMergeWarps * p bytes (each
+// partial list's head).  Lane l owns the lists r = l, l + 32, ...  Round t
+// leaves its winner's position with lane t; the position -> rowid lookups
+// (two dependent loads) run after the k rounds, all lanes at once, so no
+// round waits on device memory for them.
+__global__ void __launch_bounds__(kMergeWarps * 32)
+    b1_merge_kernel(const float* __restrict__ part_d, const int32_t* __restrict__ part_p,
+                    const int32_t* __restrict__ rowid, const int32_t* __restrict__ cids, int Q,
+                    int B, int p, int k, float* __restrict__ out_d, int32_t* __restrict__ out_r) {
+  extern __shared__ unsigned char heads_all[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qi = blockIdx.x * kMergeWarps + warp;
+  if (qi >= Q) return;  // warp-uniform; no block barrier below
+  unsigned char* heads = heads_all + warp * p;
+  for (int r = lane; r < p; r += 32) heads[r] = 0;
+  __syncwarp();
+  const size_t pbase = static_cast<size_t>(qi) * p;
+  float my_d = CUDART_INF_F;
+  int my_pos = INT_MAX;
+  for (int t = 0; t < k; ++t) {
+    float bd = CUDART_INF_F;
+    int bp = INT_MAX, br = -1;
+    for (int r = lane; r < p; r += 32) {
+      const int h = heads[r];
+      if (h < k) {
+        const size_t o = (pbase + r) * k + h;
+        const float d = part_d[o];
+        const int pos = part_p[o];
+        if (br < 0 || lex_less(d, pos, bd, bp)) {
+          bd = d;
+          bp = pos;
+          br = r;
+        }
+      }
+    }
+    float wd = bd;
+    int wp = bp;
+    warp_argmin(wd, wp);
+    const unsigned win = __ballot_sync(kFull, br >= 0 && bd == wd && bp == wp);
+    if (win != 0 && lane == __ffs(win) - 1) heads[br] += 1;
+    __syncwarp();
+    if (lane == t) {
+      my_d = wd;
+      my_pos = wp;
+    }
+  }
+  if (lane < k) {
+    const bool none = my_d == CUDART_INF_F || my_pos == INT_MAX;
+    out_d[static_cast<size_t>(qi) * k + lane] = my_d;
+    out_r[static_cast<size_t>(qi) * k + lane] =
+        none ? kSentinel : rowid[static_cast<size_t>(cids[pbase + my_pos / B]) * B + my_pos % B];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B2: one block per (probe rank, query).  grid (p, Q), block kPoolThreads,
 // dynamic shared memory D floats.  out[q, r*B + j] scores row j of bucket
 // cids[q, r]; INF past the live prefix and on tombstones.
@@ -267,25 +793,85 @@ __global__ void __launch_bounds__(kPoolThreads)
   }
 }
 
-template <typename T, int SCORE>
-cudaError_t launch_fused(const void* vectors, const float* scales, const int32_t* rowid,
-                         const void* queries, const float* qsq, const float* qscale,
-                         const int32_t* cids, const int32_t* nsb, int Q, int B, int D, int p,
-                         int k, int space, int scaled, int vec, float* out_d, int32_t* out_r,
-                         cudaStream_t stream) {
-  const int n4 = vec ? D / (16 / static_cast<int>(sizeof(T))) : 0;
-  size_t smem = (static_cast<size_t>(D) + static_cast<size_t>(p) * B) * sizeof(float);
-  if (SCORE == kScoreStub) {
-    if (!vec) return cudaErrorInvalidValue;  // the copy goes in 16-byte chunks
-    smem = ((smem + 15) & ~static_cast<size_t>(15)) + (kFusedThreads + kFusedThreads / 32) * 16;
-  }
-  auto kern = search_fused_kernel<T, SCORE>;
-  const cudaError_t e = allow_smem(kern, smem);
+// ---------------------------------------------------------------------------
+// launchers
+
+int hash_bits(int N) {
+  int b = 6;
+  while ((1 << b) < 2 * N) ++b;
+  return b;
+}
+
+cudaError_t launch_worklist(const int32_t* cids, int N, int32_t* order, int32_t* tile_start,
+                            int32_t* tile_n, int32_t* meta, cudaStream_t stream) {
+  if (N <= 0 || N > kMaxPairs) return cudaErrorInvalidValue;
+  const int hb = hash_bits(N);
+  const size_t smem = 2 * sizeof(int32_t) * (static_cast<size_t>(1) << hb);
+  const cudaError_t e = allow_smem(b1_worklist_kernel, smem);
   if (e != cudaSuccess) return e;
-  kern<<<Q, kFusedThreads, smem, stream>>>(static_cast<const T*>(vectors), scales, rowid,
-                                           queries, qsq, qscale, cids, nsb, B, D, n4, p, k,
-                                           space, scaled, out_d, out_r);
+  b1_worklist_kernel<<<1, kWorkThreads, smem, stream>>>(cids, N, hb, order, tile_start, tile_n,
+                                                         meta);
   return cudaGetLastError();
+}
+
+// bytes of the query stage of one scan block
+size_t b1_query_smem(bool mma, int score, int D, int& qstride) {
+  qstride = ((D + 127) / 128) * 128 + 64;  // 64 mod 128: conflict-free 16-byte reads
+  if (score == kScoreStub) return 0;
+  if (mma) return static_cast<size_t>(score == kScoreQi8 ? 1 : kDigits) * kTile * qstride;
+  return static_cast<size_t>(kTile) * D * (score == kScoreQi8 ? 1 : sizeof(float));
+}
+
+template <typename T, int SCORE, bool L2, bool MMA>
+cudaError_t launch_scan(const void* vectors, const float* scales, const int32_t* rowid,
+                        const float* queries, const int32_t* cids, const int32_t* nsb,
+                        const int32_t* order, const int32_t* tile_start, const int32_t* tile_n,
+                        int32_t* meta, int N, int B, int D, int p, int k, int space, int scaled,
+                        float* part_d, int32_t* part_p, unsigned* sink, cudaStream_t stream) {
+  int qstride = 0;
+  const size_t smem = 2 * kTile * kSubBlock * sizeof(float) + b1_query_smem(MMA, SCORE, D, qstride);
+  auto kern = b1_scan_kernel<T, SCORE, L2, MMA>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  // one wave of blocks; each takes tiles from meta[1] until none is left
+  static int sms = 0;
+  static size_t occ_smem = 0;
+  static int occ = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+  }
+  if (occ_smem != smem || occ == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kScanThreads, smem);
+    if (e != cudaSuccess) return e;
+    occ_smem = smem;
+  }
+  const int grid = std::max(1, std::min(N, sms * std::max(occ, 1)));
+  kern<<<grid, kScanThreads, smem, stream>>>(static_cast<const T*>(vectors), scales, rowid,
+                                             queries, cids, nsb, order, tile_start, tile_n, meta,
+                                             B, D, p, k, space, scaled, qstride, part_d, part_p,
+                                             sink);
+  return cudaGetLastError();
+}
+
+template <typename T, int SCORE, bool MMA>
+cudaError_t launch_scan_space(int space, const void* vectors, const float* scales,
+                              const int32_t* rowid, const float* queries, const int32_t* cids,
+                              const int32_t* nsb, const int32_t* order, const int32_t* tile_start,
+                              const int32_t* tile_n, int32_t* meta, int N, int B, int D, int p,
+                              int k, int scaled, float* part_d, int32_t* part_p,
+                              unsigned* sink, cudaStream_t stream) {
+  if constexpr (SCORE == kScoreF32) {
+    if (space == kL2)
+      return launch_scan<T, SCORE, true, MMA>(vectors, scales, rowid, queries, cids, nsb, order,
+                                              tile_start, tile_n, meta, N, B, D, p, k, space,
+                                              scaled, part_d, part_p, sink, stream);
+  }
+  return launch_scan<T, SCORE, false, MMA>(vectors, scales, rowid, queries, cids, nsb, order,
+                                           tile_start, tile_n, meta, N, B, D, p, k, space, scaled,
+                                           part_d, part_p, sink, stream);
 }
 
 template <typename T, bool PACKED>
@@ -309,46 +895,79 @@ cudaError_t launch_pool(const void* vectors, const float* scales, const int32_t*
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16, 2 int8 bank [K, B, D].  score: 0 f32,
-// 1 qi8 (queries int8 [Q, D], qscale [Q]), 2 bf16 (queries f32, already
-// rounded to bf16), 3 stub; qi8 and bf16 take int8 banks and cosine or dot
-// only.  qscale may be null outside qi8.  vec: rows may be read with
-// 16-byte loads (row bytes and base address multiples of 16); stub needs it.
+// B1.  dtype: 0 float32, 1 bfloat16, 2 int8 bank [K, B, D].  score: 0 f32,
+// 1 qi8, 2 bf16, 3 stub; qi8 and bf16 take int8 banks and cosine or dot
+// only.  queries [Q, D] f32 preprocessed, whatever the mode (the kernel
+// quantizes or rounds it).  vec: rows may be read with 16-byte loads (row
+// bytes and base address multiples of 16); stub needs it, and int8 banks
+// score on the tensor cores with it.  ws: int32 workspace of
+// 3*Q*p + 2 + 2*Q*p*k + 256 entries.  Q*p <= kMaxPairs, D <= kMaxDims,
+// 1 <= k <= 32.  Three launches: work list, scan, merge.
 int ivf_search_fused(int dtype, int score, const void* vectors, const float* scales,
-                     const int32_t* rowid, const void* queries, const float* qsq,
-                     const float* qscale, const int32_t* cids, const int32_t* nsb, int Q, int B,
-                     int D, int p, int k, int space, int scaled, int vec, float* out_d,
-                     int32_t* out_r, void* stream) {
+                     const int32_t* rowid, const float* queries, const int32_t* cids,
+                     const int32_t* nsb, int Q, int B, int D, int p, int k, int space, int scaled,
+                     int vec, int32_t* ws, float* out_d, int32_t* out_r, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (score == kScoreQi8 || score == kScoreBf16) {
-    if (dtype != kI8 || space == kL2) return cudaErrorInvalidValue;
-    if (score == kScoreQi8)
-      return launch_fused<int8_t, kScoreQi8>(vectors, scales, rowid, queries, qsq, qscale, cids,
-                                             nsb, Q, B, D, p, k, space, scaled, vec, out_d,
-                                             out_r, st);
-    return launch_fused<int8_t, kScoreF32>(vectors, scales, rowid, queries, qsq, qscale, cids,
-                                           nsb, Q, B, D, p, k, space, scaled, vec, out_d, out_r,
-                                           st);
-  }
-  if (score != kScoreF32 && score != kScoreStub) return cudaErrorInvalidValue;
-  const bool stub = score == kScoreStub;
+  const int N = Q * p;
+  if (Q <= 0 || p <= 0 || N > kMaxPairs || D > kMaxDims || k < 1 || k > 32)
+    return cudaErrorInvalidValue;
+  if ((score == kScoreQi8 || score == kScoreBf16) && (dtype != kI8 || space == kL2))
+    return cudaErrorInvalidValue;
+  if (score == kScoreStub && !vec) return cudaErrorInvalidValue;
+  int32_t* order = ws;
+  int32_t* tile_start = ws + N;
+  int32_t* tile_n = ws + 2 * N;
+  int32_t* meta = ws + 3 * N;
+  float* part_d = reinterpret_cast<float*>(ws + 3 * N + 2);
+  int32_t* part_p = ws + 3 * N + 2 + static_cast<size_t>(N) * k;
+  unsigned* sink = reinterpret_cast<unsigned*>(part_p + static_cast<size_t>(N) * k);
+  cudaError_t e = launch_worklist(cids, N, order, tile_start, tile_n, meta, st);
+  if (e != cudaSuccess) return e;
+
+#define B1_SCAN(T, S, M)                                                                     \
+  launch_scan_space<T, S, M>(space, vectors, scales, rowid, queries, cids, nsb, order,       \
+                             tile_start, tile_n, meta, N, B, D, p, k, scaled, part_d, part_p, \
+                             sink, st)
+  const bool mma = dtype == kI8 && vec;
   switch (dtype) {
-    case kF32:
-      return (stub ? launch_fused<float, kScoreStub> : launch_fused<float, kScoreF32>)(
-          vectors, scales, rowid, queries, qsq, qscale, cids, nsb, Q, B, D, p, k, space, scaled,
-          vec, out_d, out_r, st);
-    case kBF16:
-      return (stub ? launch_fused<__nv_bfloat16, kScoreStub>
-                   : launch_fused<__nv_bfloat16, kScoreF32>)(
-          vectors, scales, rowid, queries, qsq, qscale, cids, nsb, Q, B, D, p, k, space, scaled,
-          vec, out_d, out_r, st);
     case kI8:
-      return (stub ? launch_fused<int8_t, kScoreStub> : launch_fused<int8_t, kScoreF32>)(
-          vectors, scales, rowid, queries, qsq, qscale, cids, nsb, Q, B, D, p, k, space, scaled,
-          vec, out_d, out_r, st);
+      if (mma) {
+        e = score == kScoreQi8    ? B1_SCAN(int8_t, kScoreQi8, true)
+            : score == kScoreBf16 ? B1_SCAN(int8_t, kScoreBf16, true)
+            : score == kScoreStub ? B1_SCAN(int8_t, kScoreStub, true)
+                                  : B1_SCAN(int8_t, kScoreF32, true);
+      } else {
+        e = score == kScoreQi8    ? B1_SCAN(int8_t, kScoreQi8, false)
+            : score == kScoreBf16 ? B1_SCAN(int8_t, kScoreBf16, false)
+                                  : B1_SCAN(int8_t, kScoreF32, false);
+      }
+      break;
+    case kBF16:
+      e = score == kScoreStub ? B1_SCAN(__nv_bfloat16, kScoreStub, false)
+                              : B1_SCAN(__nv_bfloat16, kScoreF32, false);
+      break;
+    case kF32:
+      e = score == kScoreStub ? B1_SCAN(float, kScoreStub, false)
+                              : B1_SCAN(float, kScoreF32, false);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
+#undef B1_SCAN
+  if (e != cudaSuccess) return e;
+  const size_t msmem = static_cast<size_t>(kMergeWarps) * p;
+  if ((e = allow_smem(b1_merge_kernel, msmem)) != cudaSuccess) return e;
+  b1_merge_kernel<<<(Q + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, msmem, st>>>(
+      part_d, part_p, rowid, cids, Q, B, p, k, out_d, out_r);
+  return cudaGetLastError();
+}
+
+// B1's work list alone (for its check on the card): writes order, the tile
+// list and meta as ivf_search_fused's first launch does.
+int ivf_b1_worklist(const int32_t* cids, int N, int32_t* order, int32_t* tile_start,
+                    int32_t* tile_n, int32_t* meta, void* stream) {
+  return launch_worklist(cids, N, order, tile_start, tile_n, meta,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // dtype as above, or 3: packed int4 bank [K, B, D/2] uint8 (split layout).

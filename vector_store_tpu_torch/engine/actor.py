@@ -25,7 +25,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
-from vector_store_tpu.types import Limit, PrimaryKey
+from ..types import Limit, PrimaryKey
 
 # Mailbox capacity, "taken from initial benchmarks" in the reference
 # (src/index/usearch.rs:101-103).

@@ -18,8 +18,8 @@ from typing import Optional
 
 import numpy as np
 
-from vector_store_tpu.types import IndexId, IndexMetadata, IndexParams, PrimaryKey
-from vector_store_tpu.utils import metrics
+from ..types import IndexId, IndexMetadata, IndexParams, PrimaryKey
+from ..utils import metrics
 
 from ..core.index import SlotIndex
 from ..core.ivf import IvfIndex

@@ -20,7 +20,7 @@ import logging
 from dataclasses import dataclass
 from typing import Optional
 
-from vector_store_tpu.types import IndexId, IndexMetadata
+from ..types import IndexId, IndexMetadata
 from .actor import IndexHandle
 from .factory import IndexFactory
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Protocol
 
-from vector_store_tpu.types import IndexId, IndexMetadata
+from ..types import IndexId, IndexMetadata
 from .actor import IndexHandle
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Iterator, Optional
 
-from vector_store_tpu.types import PrimaryKey
+from ..types import PrimaryKey
 
 
 class KeyMap:

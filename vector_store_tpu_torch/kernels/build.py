@@ -43,9 +43,11 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dtype, score, vectors, scales, rowid, queries, qsq, qscale, cids, nsb,
-    # Q, B, D, p, k, space, scaled, vec, out_d, out_r, stream
-    "ivf_search_fused": [_I] * 2 + [_P] * 8 + [_I] * 8 + [_P] * 3,
+    # dtype, score, vectors, scales, rowid, queries, cids, nsb,
+    # Q, B, D, p, k, space, scaled, vec, ws, out_d, out_r, stream
+    "ivf_search_fused": [_I] * 2 + [_P] * 6 + [_I] * 8 + [_P] * 4,
+    # cids, N, order, tile_start, tile_n, meta, stream
+    "ivf_b1_worklist": [_P, _I] + [_P] * 5,
     # dtype, vectors, scales, rowid, queries, qsq, cids, nsb,
     # Q, B, D, p, space, scaled, vec, out, stream
     "ivf_pool_scan": [_I] + [_P] * 7 + [_I] * 7 + [_P] * 2,

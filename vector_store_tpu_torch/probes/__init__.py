@@ -76,7 +76,7 @@ def load_or_build(n: int, rpb: int, cluster_min: int | None = None):
     and not overwritten."""
     from bench import make_dataset
 
-    from vector_store_tpu.types import IndexParams
+    from ..types import IndexParams
 
     from ..core.ivf import IvfIndex
 

@@ -65,9 +65,6 @@ def main(argv=None) -> int:
     live_rows = st.valid.sum(dim=1)
     lp_modes = (False, True) if args.live_prefix is None else (bool(args.live_prefix),)
     for p in args.probes:
-        if not ic.fused_fits(DIM, min(p, st.n_clusters), B, args.score):
-            print(f"# p={p}: skip (B1's pool of {p} x {B} does not fit shared memory)")
-            continue
         _, cids, pp = ic.route(st, qdev[0], "cosine", p)
         rows_read = int(live_rows[cids.long()].sum())
         base_r = None
