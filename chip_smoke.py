@@ -12,10 +12,15 @@ parallel), then:
      (Q=256 queries, p=16 probes, bucket B=640, D=768; int8, bf16 and f32
      banks; cosine, dot and l2; B1 at k=10 and 32, B2 also over the packed
      int4 bank), with a tenth of the rows tombstoned and short live
-     prefixes, and times both with CUDA events; checks B1's work list on
-     the card, that one B1 call runs with torch's synchronisation check set
-     to raise and launches at most 4 kernels (torch.profiler), and times B1
-     in every mode beside its bound;
+     prefixes, and times both with CUDA events; holds B2 at D=4,096 and
+     4,100 (past B1's limit: its tiles then take the row in chunks)
+     against its plain version on a small bank; checks B1's work list on
+     the card, that one B1 call (3 kernels) and one B2 call (2: B1's work
+     list, then the tile scan with B2's epilogue) run with torch's
+     synchronisation check set to raise (torch.profiler counts them),
+     times B1 in every mode beside its bound, and B2 on the int8 bank, its
+     packed int4 derivative, bf16 and f32 (cold L2, in turns), at D=768
+     and at D=4,096 on banks of 0.7-5.4 GB;
  1b. grows a bucket to 4,096 rows by skewed ingest (65,536 rows, then
      10,000 near-copies of one): IvfIndex.search answers k 10 through B1
      alone, as B1's plain version would, and k 50 through B2 alone, whose
@@ -29,10 +34,14 @@ parallel), then:
      limit-50 queries, checks that the HTTP path launched both kernels,
      times IvfIndex.search on 2,048 queries in one call, and B1 in every
      mode at the HTTP batch shape (64 queries, p 16) beside its bound;
-  4. holds the graph gather-score kernel B3 against its plain version on a
-     262,144 x 768 bank (f32, bf16, int8; cosine, dot, l2) at the search
-     shape (Q=256, BR=128) and the insert shape (Q=1,024, BR=512), with
-     repeated candidate ids, and times both with CUDA events;
+  4. holds the graph kernel B3's two entry points against their plain
+     versions on a 262,144 x 768 bank (f32, bf16, int8; cosine, dot, l2)
+     at the search shape (Q=256, beam 4 x degree 32) and the insert shape
+     (Q=1,024, beam 16 x degree 32): the ids-given entry with repeated ids,
+     the expand entry (adjacency read and score in one launch) with dead
+     beams, SENTINEL-padded adjacency rows and repeated nodes; ids equal,
+     INF where the plain version has INF; times both (cold L2, in turns)
+     beside their bounds;
   5. serves a kind-"ann" (graph) index over HTTP: the route's default
      dtype (bf16), cosine, capacity 131,072; bulk-loads 131,072 rows of the
      bench corpus recipe through the engine handle plus 256 through
@@ -40,18 +49,25 @@ parallel), then:
      recall@10 >= 0.90 against SlotIndex.exact_search on the same bank,
      removes 1,000 keys and checks none comes back, compacts and checks
      count and recall after the slot remap; B3 must launch during both
-     ingest and queries;
+     ingest and queries; on the served graph, the distinct share of each
+     expand round's candidates for a search and for an insert block, and
+     the device operations of one search (torch.profiler);
   6. builds the graph at the JAX package's recorded geometry (131,072 x 768
      f32, one add() in 1,024-row blocks), checks recall@10 >= 0.95 at ef 64
      (the TPU record is 0.983), times ingest and SlotIndex.search on 2,048
-     queries, then rebuilds the centroid router (4,096 centroids) and
-     reports recall through routed entries;
+     queries; the distinct shares as in phase 5, and the middle expand
+     round of a search and of an insert block captured and held and timed
+     as in phase 4 (the graph's bank and bf16 and int8 copies of it:
+     real overlap between candidates); rebuilds the centroid router (4,096
+     centroids) and reports recall through routed entries, then counts the
+     device operations of one more insert block;
   7. holds B1's qi8, bf16 and stub score modes against their plain versions
      at phase 1's shapes (int8, the stub also on bf16 and f32 banks; cosine
      and dot; k 10 and 32) and times them, then times B1 in every mode at
      Q=256, p=16 and at Q=1,024, p=2 on the bench-geometry index of phase 3
-     (rows per bucket 340; an int8 bank of over 1 GiB), B2 at Q=256, p=16,
-     and takes recall@10 of each mode on it (probes 2, 2,048 queries);
+     (rows per bucket 340; an int8 bank of over 1 GiB), B2 at both shapes
+     on it and on its packed int4 coarse bank (cold L2, in turns), and
+     takes recall@10 of each mode on it (probes 2, 2,048 queries);
   8. on that index: derive_coarse's time, the two-stage scan's recall@10
      and batch QPS at probes 2 and 4 beside the single-stage scan's (B2
      packed must launch), then a save -> load round trip in a temporary
@@ -98,8 +114,15 @@ TPU_RECALL_GEOMETRY = 0.983  # BENCH_r05, graph ef=64 @ N=131072 (a TPU record)
 # bound_ms: one H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
-# the operand type of each B1 score mode (int8 rows x the query)
-MODE_OPS = {"f32": "f32", "bf16": "bf16", "qi8": "int8", "stub": None}
+# the units each kernel multiplies on, as (peak, products per operation):
+# B1's f32 and bf16 modes (the query rounded to bf16 first) and B2's int8
+# and packed int4 banks run on the int8 tensor cores with the query as four
+# int8 digits, four products each; qi8 with one; the stub multiplies
+# nothing; bf16 and f32 banks (B2) and B3 and B4 on CUDA cores in f32
+F32_CORES = ("f32", 1)
+MODE_UNITS = {"f32": ("int8", 4), "bf16": ("int8", 4), "qi8": ("int8", 1), "stub": None}
+B2_UNITS = {"int8": ("int8", 4), "int4-packed": ("int8", 4), "bfloat16": F32_CORES,
+            "float32": F32_CORES}
 
 
 def log(msg: str) -> None:
@@ -111,26 +134,18 @@ def log(msg: str) -> None:
 
 
 def make_corpus(n: int, d: int, seed: int = SEED) -> np.ndarray:
-    """n rows around n/50 gaussian centres, sigma 0.35 (bench.py recipe)."""
-    crng = np.random.default_rng([seed, 1])
-    n_clusters = max(n // 50, 16)
-    centers = crng.standard_normal((n_clusters, d), dtype=np.float32)
-    step = min(n, 1 << 17)
-    x = np.empty((n, d), dtype=np.float32)
-    for off in range(0, n, step):
-        m = min(step, n - off)
-        blk = x[off : off + m]
-        blk[:] = crng.standard_normal((m, d), dtype=np.float32)
-        blk *= 0.35
-        blk += centers[crng.integers(0, n_clusters, m)]
-    return x
+    """n rows around n/50 gaussian centres, sigma 0.35: the bench corpus
+    (vector_store_tpu_torch/probes/data.py)."""
+    from vector_store_tpu_torch.probes import data
+
+    return data.make_corpus(n, d, seed)
 
 
 def make_queries(x: np.ndarray, q: int, seed: int = SEED) -> np.ndarray:
     """In-distribution queries: corpus rows plus sigma-0.25 noise."""
-    rng = np.random.default_rng(seed)
-    qi = rng.choice(len(x), q, replace=False)
-    return x[qi] + 0.25 * rng.standard_normal((q, x.shape[1]), dtype=np.float32)
+    from vector_store_tpu_torch.probes import data
+
+    return data.make_queries(x, q, seed)
 
 
 def make_extra(x: np.ndarray, m: int, seed: int = SEED) -> np.ndarray:
@@ -177,24 +192,87 @@ def _compare_topk(torch, d_k, r_k, d_ref, r_ref, k):
     return err, agree, n_sep
 
 
-def _time_ms(torch, fn, reps):
+_FLUSH = []  # a device buffer larger than the 50 MB L2, written before cold launches
+# device cycles (~0.1 ms) the stream waits before each timed call, so that
+# the host has enqueued the call before its start event is reached: the
+# events then time the device, not the host's enqueue
+_WAIT_CYCLES = 200_000
+
+
+def _time_ms(torch, fn, reps, cold=False):
+    """ms per call of fn by CUDA events, after one warm-up call.  Warm:
+    `reps` calls back to back between two events (a call may find the
+    previous one's rows in L2).  Cold: before each call a 128 MB buffer is
+    written, which evicts L2, and each call is timed by its own events.
+    Either way the stream first waits on the device (torch.cuda._sleep)
+    while the host enqueues, so a wrapper's host time is not counted."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if not cold:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_WAIT_CYCLES * reps)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(32 << 20, dtype=torch.float32, device="cuda"))
+    events = []
     for _ in range(reps):
+        _FLUSH[0].fill_(1.0)
+        torch.cuda._sleep(_WAIT_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
+        end.record()
+        events.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
-def _bound(nbytes: float, ops: float, kind: str | None) -> tuple[float, str]:
+def _turns(torch, fns: dict, reps, rounds=2, cold=True) -> dict:
+    """Each named call timed in turns: the names in order, then reversed
+    (a, b, b, a for two), `rounds` times, so that a drift of the card's
+    clocks falls on all of them.  `reps` is an int or {name: int}.
+    Returns {name: (median ms, lowest, highest)} over the turns."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order + order[::-1]:
+            n = reps[name] if isinstance(reps, dict) else reps
+            times[name].append(_time_ms(torch, fns[name], n, cold))
+    return {name: (float(np.median(t)), min(t), max(t)) for name, t in times.items()}
+
+
+def _fmt(t) -> str:
+    """'median ms [lowest-highest]' of a _turns entry."""
+    return f"{t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]"
+
+
+def _count_kernels(torch, fn, names=None) -> int:
+    """Device operations (kernels, copies, memsets) one call of fn runs,
+    counted by torch.profiler; their names are appended to `names`."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if names is not None:
+        names += ops
+    return len(ops)
+
+
+def _bound(nbytes: float, ops: float, units: tuple[str, int] | None) -> tuple[float, str]:
     """(least ms, "bytes" or "operations"): the bytes the function must move
-    over the HBM rate, or its operations over the peak of their type."""
+    over the HBM rate, or its operations over the peak of the units that
+    run them, (peak, products per operation) as in MODE_UNITS."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S[kind] * 1e3 if kind else 0.0
+    t_ops = ops * units[1] / PEAK_OPS_S[units[0]] * 1e3 if units else 0.0
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -248,7 +326,7 @@ def b1_shape(torch, label, vec, scl, rid, q, cids, nsb, reps=20):
             return ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb, mode)
 
         t1, t2 = _time_ms(torch, run, reps), _time_ms(torch, run, reps)
-        bound, by = _bound(nbytes, ops if MODE_OPS[mode] else 0, MODE_OPS[mode])
+        bound, by = _bound(nbytes, ops, MODE_UNITS[mode])
         ms = (t1 + t2) / 2
         out[mode] = {"ms": ms, "bound_ms": bound, "bound_by": by}
         log(f"  B1 {label} {mode:4s}: {t1:.4f}/{t2:.4f} ms; bound {bound:.4f} ms ({by}), "
@@ -270,13 +348,11 @@ def b1_shape(torch, label, vec, scl, rid, q, cids, nsb, reps=20):
 
 
 def _turns_ms(torch, kern, plain, k_reps, p_reps):
-    """(kernel ms, plain ms), timed in the turns plain, kernel, kernel,
+    """(kernel ms, plain ms), warm, in the turns plain, kernel, kernel,
     plain, so that a drift of the card's clocks falls on both."""
-    p1 = _time_ms(torch, plain, p_reps)
-    k1 = _time_ms(torch, kern, k_reps)
-    k2 = _time_ms(torch, kern, k_reps)
-    p2 = _time_ms(torch, plain, p_reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    t = _turns(torch, {"plain": plain, "kernel": kern}, {"plain": p_reps, "kernel": k_reps},
+               rounds=1, cold=False)
+    return t["kernel"][0], t["plain"][0]
 
 
 def _scan_case(torch, gen, Q, p, B, D, K, device):
@@ -388,34 +464,148 @@ def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
         if rep["err"] > TOL or rep["agree"] < 1.0:
             raise AssertionError(f"{name}: kernel disagrees with plain: {rep}")
 
+    report["pool_scan"]["err"] = max(report["pool_scan"]["err"], b2_wide(torch, device))
+
     # serving configuration: int8 bank, cosine, k=10; turns plain/kernel/kernel/plain
     vec, scl = banks["int8"]
     if device == "cuda":
         report["b1_kernels_per_call"] = b1_host_side(
             torch, cids, lambda: ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb))
+        report["b2_kernels_per_call"] = launch_discipline(
+            torch, "B2", lambda: ic.pool_scan_fused(vec, scl, rid, q, cids, "cosine", False, nsb),
+            ic.B2_KERNELS_PER_CALL)
         report["b1_shape"] = b1_shape(torch, "phase 1", vec, scl, rid, q, cids, nsb)
     runs = {
         "search_fused": (
             lambda: ic.search_fused(vec, scl, rid, q, cids, "cosine", 10, nsb),
             lambda: ic.search_fused_plain(vec, scl, rid, q, cids, "cosine", 10, nsb),
         ),
-        "pool_scan": (
-            lambda: ic.pool_scan_fused(vec, scl, rid, q, cids, "cosine", False, nsb),
-            lambda: ic.pool_scan_plain(vec, scl, rid, q, cids, "cosine", False, nsb),
-        ),
     }
     for name, (kern, plain) in runs.items():
         ms, plain_ms = _turns_ms(torch, kern, plain, 50, 3)
         gbs = rows_read * D / (ms * 1e-3) / 1e9
-        nbytes, ops = b1_work(torch, rid, nsb, cids, D, 1, 10, pool_out=name == "pool_scan")
-        bound, by = _bound(nbytes, ops, "f32")
+        nbytes, ops = b1_work(torch, rid, nsb, cids, D, 1, 10)
+        bound, by = _bound(nbytes, ops, MODE_UNITS["f32"])
         timing[name] = (ms, plain_ms, gbs, bound, by)
         log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"({plain_ms / ms:.1f}x; {rows_read} live int8 rows read, {gbs:.1f} GB/s; "
             f"Q={Q} p={p} B={B} D={D}); bound {bound:.4f} ms ({by}), share {bound / ms:.3f}")
+    timing["pool_scan"] = b2_timing(torch, "phase 1", banks, rid, nsb, q, cids)
     del banks
     torch.cuda.empty_cache()
+    if device == "cuda":
+        timing["pool_scan_wide"] = b2_wide_timing(torch, Q, p, B, 4096, K)
     return report, timing
+
+
+def launch_discipline(torch, label, call, want: int) -> int:
+    """One call runs with torch's synchronisation check set to raise and
+    launches `want` device operations (torch.profiler); returns the count."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = _count_kernels(torch, call)
+    log(f"  {label}: one call ran without a host synchronisation and launched {n} kernels")
+    if n != want:
+        raise AssertionError(f"one {label} call launched {n} kernels, want {want}")
+    return n
+
+
+def b2_timing(torch, label, banks, rid, nsb, q, cids) -> dict:
+    """B2 at one shape, cosine, cold L2, in turns: on each bank given and,
+    for int8, its packed int4 derivative; each beside its plain version and
+    its bound.  Returns {bank: (ms, plain_ms, GB/s of live rows, bound_ms,
+    bound_by)}."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.core.quantize import pack_int4_from_int8
+
+    from vector_store_tpu_torch.core.topk import SENTINEL
+
+    out = {}
+    Q, p = cids.shape
+    rows_read = int((rid != SENTINEL).sum(dim=1)[cids.long()].sum())
+    for dt, (vec, scl) in banks.items():
+        variants = [(dt, vec, False)]
+        if dt == "int8":
+            variants.append(("int4-packed", pack_int4_from_int8(vec), True))
+        for name, v, packed in variants:
+            D = q.shape[1]
+            elem = 0.5 if packed else v.element_size()
+            t = _turns(torch, {"kernel": lambda: ic.pool_scan_fused(
+                v, scl, rid, q, cids, "cosine", packed, nsb)}, 20)
+            plain = _turns(torch, {"plain": lambda: ic.pool_scan_plain(
+                v, scl, rid, q, cids, "cosine", packed, nsb)}, 2, rounds=1)["plain"]
+            nbytes, ops = b1_work(torch, rid, nsb, cids, D, elem, 10, pool_out=True)
+            bound, by = _bound(nbytes, ops, B2_UNITS[name])
+            ms = t["kernel"][0]
+            gbs = rows_read * D * elem / (ms * 1e-3) / 1e9
+            out[name] = (ms, plain[0], gbs, bound, by)
+            log(f"  B2 {label} {name:11s} cosine, cold L2: kernel {_fmt(t['kernel'])}, "
+                f"plain {plain[0]:.4f} ms; bound {bound:.4f} ms ({by}), share "
+                f"{bound / ms:.3f}; {gbs:.1f} GB/s of live rows; Q={Q} p={p}")
+    return out
+
+
+def b2_wide(torch, device, Q=64, p=4, B=256, K=32) -> float:
+    """B2 past FUSED_MAX_DIMS (its tiles then take the row in chunks, each
+    adding its share of the distances to the pool) against its plain
+    version on a small bank: int8, packed int4, bf16 and f32; cosine, dot,
+    l2; at D=4,096 and at D=4,100 (rows not a multiple of 16 bytes: the
+    one-row-a-warp path); INF exactly where the plain version has INF.
+    Returns the max |d err|."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.core.quantize import pack_int4_from_int8
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    worst = 0.0
+    for D in (4096, 4100):
+        rid, nsb, q, cids, _ = _scan_case(torch, gen, Q, p, B, D, K, device)
+        for dt in ("int8", "bfloat16", "float32"):
+            vec, scl = _bank(torch, dt, K, B, D, gen, device)
+            variants = [(vec, False)] + ([(pack_int4_from_int8(vec), True)] if dt == "int8" else [])
+            for v, packed in variants:
+                for space in ("cosine", "dot", "l2"):
+                    got = ic.pool_scan_fused(v, scl, rid, q, cids, space, packed, nsb)
+                    want = ic.pool_scan_plain(v, scl, rid, q, cids, space, packed, nsb)
+                    _sync(torch, device)
+                    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+                        raise AssertionError(f"B2 D={D} {dt} packed={packed} {space}: INF pattern")
+                    fin = torch.isfinite(want)
+                    worst = max(worst, float((got - want)[fin].abs().max()))
+    log(f"  B2 at D=4,096 and 4,100 (Q={Q} p={p} B={B}; int8, int4 packed, bf16, f32 x cosine, "
+        f"dot, l2) vs plain: max|d err| {worst:.3e}, INF where the plain version has INF")
+    if worst > TOL:
+        raise AssertionError(f"B2 past FUSED_MAX_DIMS disagrees with its plain version: {worst}")
+    return worst
+
+
+def b2_wide_timing(torch, Q=256, p=16, B=640, D=4096, K=512) -> dict:
+    """B2 at D=4,096 on phase 1's serving shape, each bank (0.7-5.4 GB, far
+    past the 50 MB L2) made and freed in turn: held against its plain
+    version (cosine), then timed as b2_timing does.  Returns b2_timing's
+    {bank: (ms, plain_ms, GB/s, bound_ms, bound_by)}."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rid, nsb, q, cids, _ = _scan_case(torch, gen, Q, p, B, D, K, "cuda")
+    out = {}
+    for dt in ("int8", "bfloat16", "float32"):
+        banks = {dt: _bank(torch, dt, K, B, D, gen, "cuda")}
+        vec, scl = banks[dt]
+        got = ic.pool_scan_fused(vec, scl, rid, q, cids, "cosine", False, nsb)
+        want = ic.pool_scan_plain(vec, scl, rid, q, cids, "cosine", False, nsb)
+        fin = torch.isfinite(want)
+        err = float((got - want)[fin].abs().max())
+        if not torch.equal(torch.isinf(got), torch.isinf(want)) or err > TOL:
+            raise AssertionError(f"B2 D={D} {dt} at Q={Q} p={p}: err {err}")
+        del got, want, fin, vec, scl
+        out.update(b2_timing(torch, f"D={D}", banks, rid, nsb, q, cids))
+        del banks
+        torch.cuda.empty_cache()
+    return out
 
 
 def big_bucket(torch, device="cuda", n=65_536, m=10_000):
@@ -690,59 +880,148 @@ def reference_geometry(torch, corpus, queries, device, rpb=340, probes=2):
 # phases 4-6: the graph backend
 
 
-def phase_graph_kernels(torch, device="cuda", C=2 * N_GRAPH, D=DIM, shapes=None):
-    """B3 against its plain version on a [C, D] bank of unit-norm rows.
-    Returns (max |d err|, {(dtype, shape): (ms, plain_ms, GB/s)}).  The
-    tolerance is TOL for every space: l2 adds |q|^2 + |x|^2 terms near 1,
-    which f32 holds to ~1e-7."""
+# (Q, beam, degree) of the graph's expand rounds: the search shape (beam 4 x
+# degree 32) and the insert shape (insert_cfg: beam 16 x degree 32, blocks
+# of 1,024 rows)
+GRAPH_SHAPES = {"search": (256, 4, 32), "insert": (1024, 16, 32)}
+
+
+def distinct_rows(torch, ids) -> tuple[int, int]:
+    """(distinct candidate ids per query, candidate ids), ids other than
+    SENTINEL, summed over the batch: the rows B3 reads with its per-query
+    dedup, and without it."""
+    from vector_store_tpu_torch.core.topk import SENTINEL
+
+    s = torch.sort(ids, dim=1)[0]
+    valid = s != SENTINEL
+    new = valid.clone()
+    new[:, 1:] &= s[:, 1:] != s[:, :-1]
+    return int(new.sum()), int(valid.sum())
+
+
+def distinct_share(torch, ids) -> float:
+    """The share of a batch's candidate rows a per-query dedup still reads."""
+    distinct, total = distinct_rows(torch, ids)
+    return distinct / max(total, 1)
+
+
+def b3_check(torch, vec, scl, q, cand, nbrs, sel, live, device) -> float:
+    """Both B3 entry points against their plain versions in every space:
+    ids equal, INF where the plain version has INF; returns max |d err|."""
     from vector_store_tpu_torch.core import graph_cuda as gc
+
+    err = 0.0
+    for space in ("cosine", "dot", "l2"):
+        d_k = gc.gather_score_fused(vec, scl, q, cand, space)
+        d_p = gc.gather_score_plain(vec, scl, q, cand, space)
+        i_k, e_k = gc.expand_score_fused(vec, scl, nbrs, q, sel, live, space)
+        i_p, e_p = gc.expand_score_plain(vec, scl, nbrs, q, sel, live, space)
+        _sync(torch, device)
+        if not torch.equal(i_k, i_p) or not torch.equal(torch.isinf(e_k), torch.isinf(e_p)):
+            raise AssertionError(f"B3 expand: ids or INF pattern differ ({space})")
+        fin = torch.isfinite(e_p)
+        err = max(err, float((d_k - d_p).abs().max()), float((e_k - e_p)[fin].abs().max()))
+    return err
+
+
+def b3_timing(torch, label, vec, scl, q, cand, nbrs, sel, live) -> dict:
+    """B3's two entry points at one shape, cosine, cold L2, in turns, each
+    beside its plain version and its bound, and the rate at which it reads
+    the rows it does read (each query's distinct candidates: the dedup is
+    per query, so a row two queries share is read twice); and the distinct
+    share of the expand entry's candidates.  Returns {"gather"|"expand":
+    (ms, plain_ms, bound_ms, bound_by), "distinct": share}."""
+    from vector_store_tpu_torch.core import graph_cuda as gc
+    from vector_store_tpu_torch.core.topk import SENTINEL
+
+    Q, BR = cand.shape
+    D = vec.shape[1]
+    row_bytes = D * vec.element_size() + (4 if vec.dtype == torch.int8 else 0)
+    ids = gc.expand_score_plain(vec, scl, nbrs, q, sel, live, "cosine")[0]
+    valid = ids[ids != SENTINEL]
+    adj = int(torch.unique(sel[live]).numel()) * nbrs.shape[1] * 4
+    work = {
+        # distinct candidate rows read once, the queries, the ids in, the distances out
+        "gather": (int(torch.unique(cand).numel()) * row_bytes + Q * D * 4 + 2 * Q * BR * 4,
+                   2 * D * Q * BR),
+        # distinct live candidate rows, the adjacency rows of the distinct
+        # live selected nodes, sel_ids and sel_live, the queries, ids and
+        # distances out
+        "expand": (int(torch.unique(valid).numel()) * row_bytes + adj + sel.numel() * 5
+                   + Q * D * 4 + 2 * ids.numel() * 4, 2 * D * valid.numel()),
+    }
+    calls = {
+        "gather": (lambda: gc.gather_score_fused(vec, scl, q, cand, "cosine"),
+                   lambda: gc.gather_score_plain(vec, scl, q, cand, "cosine")),
+        "expand": (lambda: gc.expand_score_fused(vec, scl, nbrs, q, sel, live, "cosine"),
+                   lambda: gc.expand_score_plain(vec, scl, nbrs, q, sel, live, "cosine")),
+    }
+    read = {"gather": distinct_rows(torch, cand)[0], "expand": distinct_rows(torch, ids)[0]}
+    out = {}
+    for name, (kern, plain) in calls.items():
+        t = _turns(torch, {"plain": plain, "kernel": kern}, {"plain": 3, "kernel": 20})
+        bound, by = _bound(*work[name], F32_CORES)
+        ms = t["kernel"][0]
+        out[name] = (ms, t["plain"][0], bound, by)
+        gbs = read[name] * row_bytes / (ms * 1e-3) / 1e9
+        log(f"  B3 {name:6s} {label}, cold L2: kernel {_fmt(t['kernel'])}, plain "
+            f"{_fmt(t['plain'])}; bound {bound:.4f} ms ({by}), share {bound / ms:.3f}; "
+            f"{read[name]} rows read (per-query distinct) at {gbs:.1f} GB/s")
+    out["distinct"] = distinct_share(torch, ids)
+    return out
+
+
+def _graph_case(torch, gen, C, Q, B, R, device):
+    """Synthetic inputs of one expand round: queries, candidate ids with
+    repeats, an adjacency with SENTINEL padding (every 7th row's second
+    half), selected nodes with a tenth of the beams dead and each query's
+    first two beams on the same node."""
+    from vector_store_tpu_torch.core.distance import normalize
+    from vector_store_tpu_torch.core.topk import SENTINEL
+
+    D = DIM
+    q = normalize(torch.randn((Q, D), generator=gen, device=device))
+    cand = torch.randint(0, C, (Q, B * R), generator=gen, device=device, dtype=torch.int32)
+    cand[:, B * R - B * R // 16 :] = cand[:, : B * R // 16]  # repeated ids
+    nbrs = torch.randint(0, C, (C, R), generator=gen, device=device, dtype=torch.int32)
+    nbrs[::7, R // 2 :] = SENTINEL
+    sel = torch.randint(0, C, (Q, B), generator=gen, device=device, dtype=torch.int32)
+    sel[:, 1] = sel[:, 0]
+    live = torch.rand((Q, B), generator=gen, device=device) >= 0.1
+    return q, cand.contiguous(), nbrs, sel, live
+
+
+def phase_graph_kernels(torch, device="cuda", C=2 * N_GRAPH, D=DIM, shapes=None):
+    """B3 against its plain versions on a [C, D] bank of unit-norm rows
+    (f32, bf16, int8; cosine, dot, l2) at the search and insert shapes:
+    the ids-given entry with repeated ids, the expand entry with dead
+    beams, SENTINEL padding and repeated nodes.  On the card, each entry's
+    time (cold L2, in turns) beside its bound.  Returns (max |d err|,
+    {(dtype, shape): timing}).
+    The tolerance is TOL for every space: l2 adds |q|^2 + |x|^2 terms near
+    1, which f32 holds to ~1e-7."""
     from vector_store_tpu_torch.core.distance import normalize
     from vector_store_tpu_torch.core.quantize import quantize_rows
 
-    shapes = shapes or {"search": (256, 128), "insert": (1024, 512)}
+    shapes = shapes or GRAPH_SHAPES
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     rows = normalize(torch.randn((C, D), generator=gen, device=device))
-    cases = {}
-    for name, (Q, BR) in shapes.items():
-        q = normalize(torch.randn((Q, D), generator=gen, device=device))
-        cand = torch.randint(0, C, (Q, BR), generator=gen, device=device, dtype=torch.int32)
-        cand[:, BR - BR // 16 :] = cand[:, : BR // 16]  # repeated ids
-        cases[name] = (q, cand.contiguous())
+    cases = {name: _graph_case(torch, gen, C, *shape, device) for name, shape in shapes.items()}
     err, timing = 0.0, {}
     for dt in ("float32", "bfloat16", "int8"):
         if dt == "int8":
             vec, scl = quantize_rows(rows)
         else:
             vec, scl = rows.to(getattr(torch, dt)), torch.ones((C,), device=device)
-        for name, (q, cand) in cases.items():
-            for space in ("cosine", "dot", "l2"):
-                d_k = gc.gather_score_fused(vec, scl, q, cand, space)
-                d_p = gc.gather_score_plain(vec, scl, q, cand, space)
-                _sync(torch, device)
-                e = float((d_k - d_p).abs().max())
-                err = max(err, e)
-                log(f"  B3 {dt:8s} {name:6s} {space:6s}: max|d err| {e:.3e}")
-            Q, BR = cand.shape
-
-            def kern():
-                return gc.gather_score_fused(vec, scl, q, cand, "cosine")
-
-            def plain():
-                return gc.gather_score_plain(vec, scl, q, cand, "cosine")
-
-            ms, plain_ms = _turns_ms(torch, kern, plain, 20, 3)
-            gbs = Q * BR * D * vec.element_size() / (ms * 1e-3) / 1e9
-            # each distinct candidate row (and int8 scale) read once, the
-            # queries and candidate ids, the [Q, BR] f32 output; 2*D f32
-            # operations per (query, candidate)
-            distinct = int(torch.unique(cand).numel())
-            row_bytes = D * vec.element_size() + (4 if dt == "int8" else 0)
-            nbytes = distinct * row_bytes + Q * D * 4 + 2 * Q * BR * 4
-            bound, by = _bound(nbytes, 2 * D * Q * BR, "f32")
-            timing[(dt, name)] = (ms, plain_ms, gbs, bound, by)
-            log(f"  B3 {dt:8s} {name:6s} cosine: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
-                f"({plain_ms / ms:.1f}x; {gbs:.1f} GB/s of rows read, Q={Q} BR={BR} D={D}); bound "
-                f"{bound:.4f} ms ({by}, {distinct} distinct rows), share {bound / ms:.3f}")
+        for name, (q, cand, nbrs, sel, live) in cases.items():
+            e = b3_check(torch, vec, scl, q, cand, nbrs, sel, live, device)
+            err = max(err, e)
+            log(f"  B3 {dt:8s} {name:6s} (cosine, dot, l2; both entries): max|d err| {e:.3e}, "
+                f"expand ids equal")
+            if device == "cuda":
+                timing[(dt, name)] = b3_timing(torch, f"{dt} {name} Q={len(q)} "
+                                               f"BR={cand.shape[1]}", vec, scl, q, cand,
+                                               nbrs, sel, live)
         del vec, scl
     if err > TOL:
         raise AssertionError(f"B3 disagrees with its plain version: max|d err| {err}")
@@ -787,21 +1066,22 @@ async def phase_graph_service(torch, n=N_GRAPH, device="cuda", n_remove=N_REMOVE
                 raise AssertionError(f"PUT made {type(idx).__name__} {idx.cfg.dtype}")
 
             # main path from here: B3 launches of this run only
-            graph_cuda.LAUNCHES["gather_score"] = 0
+            for key in graph_cuda.LAUNCHES:
+                graph_cuda.LAUNCHES[key] = 0
             ingest_s = await _ingest(http, base, handle, corpus, extra)
             want = n + len(extra)
             out["ingest_vec_s"] = want / ingest_s
-            out["launches_ingest"] = graph_cuda.LAUNCHES["gather_score"]
+            out["launches_ingest"] = graph_cuda.LAUNCHES["expand_score"]
             log(f"  ingested {want} rows in {ingest_s:.2f} s: {out['ingest_vec_s']:.0f} vec/s; "
                 f"capacity {idx.capacity}, routing sample {idx.cfg.routing_sample}; "
                 f"B3 launches {out['launches_ingest']}")
 
-            graph_cuda.LAUNCHES["gather_score"] = 0
+            graph_cuda.LAUNCHES["expand_score"] = 0
             lat = []
             t0 = time.perf_counter()
             got = await _http_ann(http, base, queries, 10, lat)
             wall = time.perf_counter() - t0
-            out["launches_query"] = graph_cuda.LAUNCHES["gather_score"]
+            out["launches_query"] = graph_cuda.LAUNCHES["expand_score"]
             lat_ms = np.asarray(lat) * 1e3
             out["recall_http"] = _recall(got, _slot_truth(backend, queries))
             out["p50_ms"], out["p99_ms"] = (float(np.percentile(lat_ms, s)) for s in (50, 99))
@@ -812,6 +1092,8 @@ async def phase_graph_service(torch, n=N_GRAPH, device="cuda", n_remove=N_REMOVE
                 f"{out['launches_query']}")
             if device == "cuda" and not (out["launches_ingest"] > 0 and out["launches_query"] > 0):
                 raise AssertionError(f"B3 was not launched: {out}")
+            out["rounds"] = graph_observe(torch, "service graph (bf16)", idx, queries,
+                                          make_extra(corpus, 1024, seed=SEED + 5))
 
             removed = set(range(0, n, max(n // n_remove, 1))[:n_remove])
             sem = asyncio.Semaphore(IN_FLIGHT)
@@ -885,6 +1167,10 @@ def graph_geometry(torch, n=N_GRAPH, device="cuda"):
         f"{idx.cfg.ef_search}: {out['recall']:.4f} (TPU record {TPU_RECALL_GEOMETRY})")
     if out["recall"] < MIN_RECALL_GEOMETRY:
         raise AssertionError(f"recall@10 {out['recall']} < {MIN_RECALL_GEOMETRY}")
+    extra = make_extra(corpus, 1024, seed=SEED + 6)
+    out["rounds"] = graph_observe(torch, "recorded geometry (f32)", idx, queries[:256], extra,
+                                  captured=device == "cuda")
+
     k = cluster.route_k_for(idx.frontier)
     t0 = time.perf_counter()
     with idx._lock:  # a forced rebuild below ROUTE_MIN_ROWS
@@ -895,6 +1181,105 @@ def graph_geometry(torch, n=N_GRAPH, device="cuda"):
     out["recall_routed"] = _recall([r.tolist() for r in ids], truth)
     log(f"  router rebuilt with {k} centroids in {build_s:.2f} s; recall@10 through routed "
         f"entries: {out['recall_routed']:.4f}")
+    if device == "cuda":  # one more insert block, with the index's own add()
+        from vector_store_tpu_torch.core import graph_cuda as gc
+
+        names = []
+        before = gc.LAUNCHES["expand_score"]
+        out["insert_block_ops"] = _count_kernels(torch, lambda: idx.add(extra), names)
+        b3 = sum("graph_score_kernel" in name for name in names)
+        launched = (gc.LAUNCHES["expand_score"] - before) // 2  # a warm-up call, then the counted one
+        log(f"  one insert block (1,024 rows, add()): {out['insert_block_ops']} device operations "
+            f"as the profiler records them, {b3} of them B3 (B3 launches by its count: "
+            f"{launched})")
+    return out
+
+
+def graph_rounds(torch, idx, queries, insert=False, capture=None):
+    """search_pool's rounds on a SlotIndex's graph, observed: the distinct
+    share of each round's candidates (distinct_share) and, for round
+    `capture`, (queries_f32, sel_ids, sel_live).  insert: the insert-time
+    search (build.insert_cfg) with `queries` as a block of new rows; the
+    graph is not changed."""
+    from vector_store_tpu_torch.core import build, search
+    from vector_store_tpu_torch.core import graph_cuda as gc
+    from vector_store_tpu_torch.core.distance import preprocess
+    from vector_store_tpu_torch.core.topk import merge_pool, merge_pool_fast
+
+    cfg = build.insert_cfg(idx.cfg) if insert else idx.cfg
+    merge = merge_pool_fast if cfg.approx_topk else merge_pool
+    shares, captured = [], None
+    with idx._lock:
+        st = idx._state
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=idx.device)
+        q = preprocess(q, cfg.space).to(cfg.compute_dtype)
+        qf = q.float().contiguous()
+        pool = search._init_pool(st, q, cfg)
+        for r in range(cfg.search_iters):
+            sel_ids, sel_live, pool_exp = search.select_frontier(pool, cfg.beam_width)
+            if r == capture:
+                captured = (qf, sel_ids.clone(), sel_live.clone())
+            ids, dist = gc.expand_score_fused(st.vectors, st.scales, st.neighbors, qf, sel_ids,
+                                              sel_live, cfg.space)
+            shares.append(distinct_share(torch, ids))
+            pool = merge(pool[0], pool[1], pool_exp, dist, ids)
+    return shares, captured, cfg
+
+
+def graph_observe(torch, label, idx, queries, block, captured=False) -> dict:
+    """On a built graph: the distinct share of each expand round's
+    candidates for a search of `queries` and for the insert-time search of
+    `block`; device operations of one SlotIndex.search of 256 queries; with
+    `captured`, the middle round of each, held and timed on the card as
+    phase 4 does (the graph's bank, and its bf16 and int8 copies)."""
+    from vector_store_tpu_torch.core import build
+    from vector_store_tpu_torch.core import graph_cuda as gc
+    from vector_store_tpu_torch.core.quantize import quantize_rows
+
+    out = {}
+    dev = idx.device.type
+    caps = {}
+    for name, q, insert in (("search", queries, False), ("insert", block, True)):
+        iters = (build.insert_cfg(idx.cfg) if insert else idx.cfg).search_iters
+        shares, cap, cfg = graph_rounds(torch, idx, q, insert, capture=iters // 2)
+        caps[name] = (cap, cfg)
+        total = float(np.mean(shares))
+        out[f"distinct_{name}"] = (total, shares)
+        log(f"  {label}, {name} ({len(q)} queries, beam {cfg.beam_width} x degree "
+            f"{cfg.degree}, {cfg.search_iters} rounds): distinct candidate share per round "
+            + " ".join(f"{x:.3f}" for x in shares) + f"; mean {total:.3f}")
+    if dev == "cuda":
+        names = []
+        before = gc.LAUNCHES["expand_score"]
+        out["search_ops"] = _count_kernels(torch, lambda: idx.search(queries[:256], 10), names)
+        b3 = sum("graph_score_kernel" in name for name in names)
+        launched = (gc.LAUNCHES["expand_score"] - before) // 2  # a warm-up call, then the counted one
+        log(f"  {label}: one SlotIndex.search of 256 queries runs {out['search_ops']} device "
+            f"operations as the profiler records them, {b3} of them B3 (B3 launches by its "
+            f"count: {launched}, one per expand round)")
+    if not captured:
+        return out
+    st = idx._state
+    rows = st.vectors.float()
+    for name, ((qf, sel, live), cfg) in caps.items():
+        for dt in ("float32", "bfloat16", "int8"):
+            if dt == "int8":
+                vec, scl = quantize_rows(rows)
+            elif getattr(torch, dt) == st.vectors.dtype:
+                vec, scl = st.vectors, st.scales
+            else:
+                vec, scl = rows.to(getattr(torch, dt)), torch.ones_like(st.scales)
+            ids = gc.expand_score_plain(vec, scl, st.neighbors, qf, sel, live, cfg.space)[0]
+            cand = ids.clamp(0, st.capacity - 1).contiguous()
+            err = b3_check(torch, vec, scl, qf, cand, st.neighbors, sel, live, dev)
+            lab = f"{dt} captured {name} round Q={len(qf)} BR={ids.shape[1]}"
+            log(f"  B3 {lab}: max|d err| {err:.3e} (cosine, dot, l2; both entries), ids equal")
+            if err > TOL:
+                raise AssertionError(f"B3 on a captured round disagrees: {err}")
+            out[(dt, name)] = b3_timing(torch, lab, vec, scl, qf, cand, st.neighbors, sel, live)
+            del vec, scl
+    del rows
+    torch.cuda.empty_cache()
     return out
 
 
@@ -954,8 +1339,7 @@ def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
         )
         rep["gbs"] = rows_read * D / (rep["ms"] * 1e-3) / 1e9
         nbytes, ops = b1_work(torch, rid, nsb, cids, D, 1, 10)
-        kind = MODE_OPS[mode]
-        rep["bound_ms"], rep["bound_by"] = _bound(nbytes, ops if kind else 0, kind)
+        rep["bound_ms"], rep["bound_by"] = _bound(nbytes, ops, MODE_UNITS[mode])
         log(f"  B1 {mode}: kernel {rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  "
             f"({rep['plain_ms'] / rep['ms']:.1f}x; {rep['gbs']:.1f} GB/s of rows read, "
             f"Q={Q} p={p} B={B} D={D}); bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
@@ -1004,6 +1388,14 @@ def bench_rates(torch, geo, Q=256, p=16):
         log(f"  {name} on the bench-geometry index ({out['bank_gib']:.3f} GiB), Q={Q} p={p}: "
             f"{ms:.4f} ms, {out[name][1]:.1f} GB/s of rows read ({rows_read} rows, "
             f"{out['distinct']:.3f} of them in distinct buckets)")
+    if idx.device.type == "cuda":
+        # B2 in turns (cold L2) on this index at this shape and at the
+        # bench geometry's own (probes 2), int8 and packed int4 (the
+        # two-stage scan's coarse bank)
+        for label, qn, pn in cases:
+            qq, cc, _ = ic.route(st, torch.as_tensor(queries[:qn], device=idx.device), "cosine", pn)
+            banks = {"int8": (st.vectors, st.scales)}
+            out[f"b2 {label}"] = b2_timing(torch, label, banks, rid, nsb, qq, cc)
     return out
 
 
@@ -1139,7 +1531,7 @@ def phase_copy_probe(torch, device="cuda"):
         torch, lambda: dma.stream(q, bank, True), lambda: dma.stream_plain(q, bank, True), 20, 2
     )
     # the bank read once; 2*D f32 operations per row (score on)
-    bound, by = _bound(bank.numel() + q.numel() * 4 + 32, 2 * bank.numel(), "f32")
+    bound, by = _bound(bank.numel() + q.numel() * 4 + 32, 2 * bank.numel(), F32_CORES)
     del flat, bank
     torch.cuda.empty_cache()
     log(f"  B4 B=128 score=1: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms; max rel err "
@@ -1223,12 +1615,13 @@ def main() -> int:
     b4 = phase_copy_probe(torch)
     roof = {sc: next(r["gbs"] for r in b4["rows"] if r["B"] == 128 and r["score"] == sc)
             for sc in (True, False)}
+    synth = {"search_fused": timing["search_fused"][2], "pool_scan": timing["pool_scan"]["int8"][2]}
     for name, label in (("search_fused", "B1"), ("pool_scan", "B2")):
         gbs = rates[name][1]
         log(f"  {label} rows read on the bench-geometry index {gbs:.1f} GB/s = "
             f"{gbs / roof[True]:.3f} of B4's score-on rate at B=128 ({roof[True]:.1f} GB/s), "
             f"{gbs / roof[False]:.3f} of its copy rate ({roof[False]:.1f} GB/s); phase 1's "
-            f"synthetic bank {timing[name][2]:.1f} GB/s")
+            f"synthetic bank {synth[name]:.1f} GB/s")
 
     # library_ms: no single PyTorch call computes B1 (gather the probed
     # buckets, score, mask, top-k), B2 or B3 (each a gather before the
@@ -1265,7 +1658,9 @@ def main() -> int:
             "bound_by": modes[mode]["bound_by"],
             "library_ms": None,
         })
-    b3 = b3_timing[("bfloat16", "search")]
+    b2 = timing["pool_scan"]["int8"]
+    b2_bench = rates["b2 bench index Q=256 p=16"]["int8"]
+    b3 = {shape: b3_timing[("bfloat16", shape)]["expand"] for shape in GRAPH_SHAPES}
     kernels += [
         {
             "name": "ivf_pool_scan",
@@ -1274,25 +1669,37 @@ def main() -> int:
             "replaces": "vector_store_tpu/core/ivf_pallas.py:252",
             "launches": svc["launches"]["pool_scan"],
             "max_abs_err": report["pool_scan"]["err"],
-            "ms": timing["pool_scan"][0],
-            "plain_ms": timing["pool_scan"][1],
-            "bound_ms": timing["pool_scan"][3],
-            "bound_by": timing["pool_scan"][4],
+            # times: phase 1's shapes, int8, cosine, cold L2 (median of turns)
+            "ms": b2[0],
+            "plain_ms": b2[1],
+            "bound_ms": b2[3],
+            "bound_by": b2[4],
             "library_ms": None,
+            "ms_bench_index": b2_bench[0],
+            "bound_ms_bench_index": b2_bench[3],
+            "ms_d4096": timing["pool_scan_wide"]["int8"][0],
+            "bound_ms_d4096": timing["pool_scan_wide"]["int8"][3],
         },
         {
-            # times: bf16 bank (the route's default dtype), search shape
-            "name": "graph_gather_score",
+            # B3 through its expand entry (the main path's); times: bf16 bank
+            # (the route's default dtype), cold L2, median of turns, at the
+            # search shape and (the *_insert keys) the insert shape
+            "name": "graph_expand_score",
             "route": "cuda",
             "source": src + "graph_gather.cu",
             "replaces": "vector_store_tpu/core/graph_pallas.py:89",
             "launches": gsvc["launches_ingest"] + gsvc["launches_query"],
+            "launches_ingest": gsvc["launches_ingest"],
+            "launches_query": gsvc["launches_query"],
             "max_abs_err": b3_err,
-            "ms": b3[0],
-            "plain_ms": b3[1],
-            "bound_ms": b3[3],
-            "bound_by": b3[4],
+            "ms": b3["search"][0],
+            "plain_ms": b3["search"][1],
+            "bound_ms": b3["search"][2],
+            "bound_by": b3["search"][3],
             "library_ms": None,
+            "ms_insert": b3["insert"][0],
+            "plain_ms_insert": b3["insert"][1],
+            "bound_ms_insert": b3["insert"][2],
         },
         {
             # times: B=128, score on, over the >= 1 GiB bank

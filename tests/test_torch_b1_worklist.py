@@ -12,6 +12,17 @@ The CUDA kernels cannot run here; these tests pin what they compute:
     the whole pool bit for bit, ids and distances, ties included;
   * the f32 query's four int8 digits rebuild it to within 2^-22 of its
     largest element, and score int8 rows within 1e-6 of the f32 dots.
+
+B2 runs on the same work list: a scan of its tiles stores each pair's
+scores straight into the pool.  Here the pool assembled tile by tile, in
+the work list's order and the kernel's store pattern (128-row sub-blocks
+up to the live prefix, INF past it), equals `pool_scan_plain` bit for bit,
+packed and unpacked; and the packed bank's nibbles, unpacked as the kernel
+does (word-wide, `__vsub4`), give the int4 codes and score with the query
+digits within 1e-6 of the f32 dots.  Past FUSED_MAX_DIMS B2 takes the row
+in chunks (`pool_chunk`), each adding its share of every distance to the
+pool: the shares over the dims each chunk stages add up to
+`pool_scan_plain`'s distances within 1e-5.
 """
 
 import numpy as np
@@ -19,7 +30,12 @@ import pytest
 import torch
 
 from vector_store_tpu_torch.core import ivf_cuda
-from vector_store_tpu_torch.core.quantize import quantize_rows
+from vector_store_tpu_torch.core.quantize import (
+    int4_scale,
+    pack_int4_from_int8,
+    quantize_rows,
+    unpack_int4,
+)
 from vector_store_tpu_torch.core.topk import SENTINEL
 
 K, B, D, Q = 24, 256, 64, 8
@@ -175,3 +191,162 @@ def test_query_digits_score_int8_rows_as_f32():
     dots = S.float() * fac[:, None]
     want = q @ x.float().T
     assert (dots - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def _tiled_pool(vec, scl, rid, nsb, q, cids, space, packed):
+    """B2's pool as its scan writes it: tile by tile in the work list's
+    order, each tile's bucket scored once for its pairs, stored in 128-row
+    sub-blocks up to the live prefix and INF past it.  NaN marks a pool
+    entry no tile wrote."""
+    Q, p = cids.shape
+    B = vec.shape[1]
+    order, start, n, n_tiles = ivf_cuda.worklist(cids)
+    flat = cids.reshape(-1)
+    out = torch.full((Q * p, B), float("nan"))
+    for t in range(int(n_tiles[0])):
+        pairs = order[int(start[t]) : int(start[t]) + int(n[t])].long()
+        c = int(flat[pairs[0]])
+        # the tile's queries against bucket c, scored once
+        probe = torch.full((len(pairs), 1), c, dtype=torch.int32)
+        block = ivf_cuda.pool_scan_plain(vec, scl, rid, q[pairs // p], probe, space, packed, nsb)
+        live = min(int(nsb[c]) * ivf_cuda.SUB_BLOCK, B)
+        for base in range(0, live, ivf_cuda.SUB_BLOCK):
+            end = min(base + ivf_cuda.SUB_BLOCK, live)
+            out[pairs, base:end] = block[:, base:end]
+        out[pairs, live:] = float("inf")
+    return out.reshape(Q, p * B)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed"])
+@pytest.mark.parametrize("space", ["cosine", "dot", "l2"])
+@pytest.mark.parametrize("p", [1, 4, 16])
+def test_b2_tiled_pool_equals_plain(p, space, packed):
+    """The query is rounded to multiples of 1/64, so every dot of int8 or
+    int4 codes with it is exact in f32, whatever order the CPU's product
+    sums in: what is held to the bit is where each score lands."""
+    vec, scl, rid, nsb, q = _bank()
+    q = torch.round(q * 64) / 64
+    if packed:
+        vec = pack_int4_from_int8(vec)
+    cids = _cids(p)
+    cids[:, 0] = 7  # a bucket probed by every query: one tile holds all of them
+    got = _tiled_pool(vec, scl, rid, nsb, q, cids, space, packed)
+    want = ivf_cuda.pool_scan_plain(vec, scl, rid, q, cids, space, packed, nsb)
+    assert not torch.isnan(got).any()  # every pool entry written once
+    assert torch.equal(got, want)
+    assert torch.isinf(want).any() and torch.isfinite(want).any()
+
+
+def _vsub4(a, b):
+    """__vsub4: bytewise a - b of uint32 words, each byte wrapping."""
+    out = np.zeros_like(a)
+    for k in range(4):
+        sh = np.uint32(8 * k)
+        d = (((a >> sh) & np.uint32(0xFF)) - ((b >> sh) & np.uint32(0xFF))) & np.uint32(0xFF)
+        out |= d << sh
+    return out
+
+
+def _nibbles_as_kernel(packed):
+    """The kernel's unpack of packed rows [..., D/2] uint8 into int8 codes
+    [..., D]: per 32-bit word, nib_lo(w) = __vsub4((w & 0x0f0f0f0f) ^
+    0x08080808, 0x08080808) and nib_hi(w) = nib_lo(w >> 4)."""
+    x = np.ascontiguousarray(packed.numpy())
+    words = x.view(np.uint32)
+
+    def nib_lo(w):
+        return _vsub4((w & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808), np.uint32(0x08080808))
+
+    lo = nib_lo(words).view(np.int8)
+    hi = nib_lo(words >> np.uint32(4)).view(np.int8)
+    return torch.from_numpy(np.concatenate([lo, hi], axis=-1))
+
+
+def test_packed_nibbles_unpack_as_the_kernel_does():
+    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(8, 32)
+    assert torch.equal(_nibbles_as_kernel(every), unpack_int4(every))
+    vec, *_ = _bank()
+    packed = pack_int4_from_int8(vec)
+    assert torch.equal(_nibbles_as_kernel(packed), unpack_int4(packed))
+
+
+def test_query_digits_score_packed_rows_as_f32():
+    """The packed rows' nibbles (the low half against dims j, the high half
+    against dims j + D/2) times the query digits, exact integer sums
+    combined in int64 and rounded once, against the f32 dots of the
+    unpacked int4 codes."""
+    vec, scl, rid, nsb, q = _bank()
+    packed = pack_int4_from_int8(vec).reshape(-1, D // 2)
+    codes = _nibbles_as_kernel(packed).long()
+    digits, fac = ivf_cuda.query_digits(q)
+    lo = torch.einsum("nd,qgd->qgn", codes[:, : D // 2], digits[:, :, : D // 2].long())
+    hi = torch.einsum("nd,qgd->qgn", codes[:, D // 2 :], digits[:, :, D // 2 :].long())
+    acc = lo + hi  # [Q, 4, rows], exact
+    S = ((acc[:, 0] * 128 + acc[:, 1]) * 128 + acc[:, 2]) * 128 + acc[:, 3]
+    dots = S.float() * fac[:, None]
+    want = q @ unpack_int4(packed).float().T
+    assert (dots - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def _chunked_pool(vec, scl, rid, nsb, q, cids, space, packed):
+    """B2's pool as its scan adds it up past FUSED_MAX_DIMS: for each chunk
+    of pool_chunk(D, packed) row elements, each distance's share over the
+    query dims the kernel stages for it (e0.. and, packed, dw + e0..), the
+    shares added in chunk order, then the constant term (1 for cosine,
+    |q|^2 for l2); INF where the row is dead or past the live prefix."""
+    Qn, p = cids.shape
+    Kn, Bn, dw = vec.shape
+    ec = ivf_cuda.pool_chunk(q.shape[1], packed)
+    x = (unpack_int4(vec) if packed else vec).float()
+    s = (int4_scale(scl) if packed else scl)[cids.long()]
+    total = 0.0
+    for e0 in range(0, dw, ec):
+        dims = torch.arange(e0, min(e0 + ec, dw))
+        if packed:
+            dims = torch.cat([dims, dims + dw])
+        xc = x[..., dims][cids.long()]  # [Q, p, B, chunk]
+        dot = torch.einsum("qpbd,qd->qpb", xc, q[:, dims]) * s
+        share = (xc * xc).sum(-1) * s * s - 2.0 * dot if space == "l2" else -dot
+        total = total + share
+    konst = (q * q).sum(-1)[:, None, None] if space == "l2" else float(space == "cosine")
+    d = total + konst
+    live = torch.arange(Bn) < (nsb[cids.long()] * ivf_cuda.SUB_BLOCK)[..., None]
+    dead = (rid[cids.long()] == SENTINEL) | ~live
+    return d.masked_fill(dead, float("inf")).reshape(Qn, p * Bn)
+
+
+@pytest.mark.parametrize("space", ["cosine", "dot", "l2"])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed"])
+@pytest.mark.parametrize("dims", [4096, 5000])
+def test_b2_chunks_add_up_to_plain(dims, packed, space):
+    """Past FUSED_MAX_DIMS B2 scans the row in chunks whose staged queries
+    fit shared memory, 16-byte aligned; the chunks' shares of each distance
+    add up to pool_scan_plain's within 1e-5, INF exactly where it has INF."""
+    Kn, Bn, Qn, p = 4, 160, 4, 2
+    g = torch.Generator().manual_seed(7)
+    rows = torch.nn.functional.normalize(torch.randn(Kn * Bn, dims, generator=g), dim=1)
+    codes, scales = quantize_rows(rows)
+    vec, scl = codes.reshape(Kn, Bn, dims), scales.reshape(Kn, Bn)
+    dead = torch.rand(Kn, Bn, generator=g) < 0.1
+    dead[1, 20:] = True  # a short live prefix
+    rid = torch.where(dead, SENTINEL, torch.arange(Kn * Bn, dtype=torch.int32).reshape(Kn, Bn))
+    nsb = ivf_cuda.live_prefix_blocks(rid != SENTINEL)
+    q = torch.nn.functional.normalize(torch.randn(Qn, dims, generator=g), dim=1)
+    cids = torch.tensor([[0, 1], [1, 2], [2, 3], [3, 0]], dtype=torch.int32)
+    if packed:
+        vec = pack_int4_from_int8(vec)
+    dw = vec.shape[2]
+    ec = ivf_cuda.pool_chunk(dims, packed)
+    assert ec < dw and ec % 256 == 0  # several chunks, each starting 16-byte aligned
+    assert (2 * ec if packed else ec) <= ivf_cuda.POOL_CHUNK_DIMS
+    got = _chunked_pool(vec, scl, rid, nsb, q, cids, space, packed)
+    want = ivf_cuda.pool_scan_plain(vec, scl, rid, q, cids, space, packed, nsb)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert fin.any() and (got[fin] - want[fin]).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed"])
+def test_b2_one_chunk_up_to_fused_max_dims(packed):
+    for dims in (64, 768, ivf_cuda.FUSED_MAX_DIMS):
+        assert ivf_cuda.pool_chunk(dims, packed) == (dims // 2 if packed else dims)

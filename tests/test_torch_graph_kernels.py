@@ -11,6 +11,7 @@ the plain version on the card by chip_smoke.py.  The merges, the dedup and
 the run ranks must equal the JAX package's outputs exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,6 +72,111 @@ def test_gather_score_plain_matches_pallas(dtype, space):
     assert torch.equal(plain[:, 0], plain[:, 1])
 
 
+def _expand_case(rng, Qn=Q, B=4, R=16):
+    """An adjacency [C, R] with SENTINEL padding (every 5th row holds only
+    its first 3 neighbours, row 7 none), selected nodes [Qn, B] with dead
+    beams (a dead beam's id may be SENTINEL or a stale node), and repeated
+    neighbours (every row's last 4 entries repeat its first 4; beams 0 and 1
+    of query 0 expand the same node)."""
+    nbrs = rng.integers(0, C, size=(C, R)).astype(np.int32)
+    nbrs[:, R - 4 :] = nbrs[:, :4]
+    nbrs[::5, 3:] = SENT
+    nbrs[7] = SENT
+    sel = rng.integers(0, C, size=(Qn, B)).astype(np.int32)
+    sel[0, 1] = sel[0, 0]
+    sel[1, 0] = 7
+    sel[2, 0] = 5
+    live = rng.random((Qn, B)) < 0.8
+    live[0, :2] = True
+    live[1:3, 0] = True
+    live[3] = False
+    sel[3, :2] = SENT  # a query whose pool ran dry
+    return nbrs, sel, live
+
+
+def _jax_expand(jv, js, nbrs, q, sel, live, space, quantized):
+    """The JAX expand round's steps 3-4 (vector_store_tpu/core/search.py)."""
+    Qn, B = sel.shape
+    cap = jv.shape[0]
+    safe_sel = jnp.clip(jnp.asarray(sel), 0, cap - 1)
+    nb = jnp.take(jnp.asarray(nbrs), safe_sel, axis=0)
+    nb = jnp.where(jnp.asarray(live)[..., None], nb, SENT)
+    cand = nb.reshape(Qn, -1)
+    is_sent = cand >= cap
+    dist = j_gather_score(jv, js, jnp.asarray(q), jnp.clip(cand, 0, cap - 1), space, quantized,
+                          interpret=True)
+    return np.asarray(jnp.where(is_sent, SENT, cand)), np.asarray(jnp.where(is_sent, jnp.inf, dist))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("space", ["cosine", "dot", "l2"])
+def test_expand_score_plain_matches_jax_expand_round(dtype, space):
+    rng = np.random.default_rng(10 + ["float32", "bfloat16", "int8"].index(dtype))
+    jv, js, tv, ts = _bank(dtype, rng)
+    q = rng.normal(size=(Q, D)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    nbrs, sel, live = _expand_case(rng)
+    with jax.default_device(jax.devices("cpu")[0]):
+        want_ids, want_d = _jax_expand(jv, js, nbrs, q, sel, live, space, dtype == "int8")
+    args = (tv, ts, torch.from_numpy(nbrs), torch.from_numpy(q), torch.from_numpy(sel),
+            torch.from_numpy(live), space)
+    ids, dist = graph_cuda.expand_score_plain(*args)
+    assert ids.dtype == torch.int32 and dist.dtype == torch.float32
+    assert ids.shape == dist.shape == (Q, 4 * 16)
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    assert np.array_equal(np.isinf(dist.numpy()), np.isinf(want_d))
+    np.testing.assert_allclose(dist.numpy(), want_d, rtol=0, atol=ATOL)
+    # the wrapper takes the plain version on CPU tensors
+    w_ids, w_dist = graph_cuda.expand_score_fused(*args)
+    assert torch.equal(w_ids, ids) and torch.equal(w_dist, dist)
+    # the cases are there: dead beams, padding, repeats
+    assert (ids[3] == SENT).all() and torch.isinf(dist[3]).all()
+    assert (ids[1, :16] == SENT).all()  # node 7: no neighbours
+    assert (ids[2, 3:16] == SENT).all() and (ids[2, :3] != SENT).all()  # node 5: 3
+    assert torch.equal(ids[0, :16], ids[0, 16:32]) and torch.equal(dist[0, :16], dist[0, 16:32])
+
+
+def test_expand_round_runs_b3_through_the_adjacency():
+    """_expand_round hands the adjacency to B3's expand entry point: its
+    candidates equal the plain composition (gather the rows, mask, score)."""
+    from vector_store_tpu_torch.core import search
+
+    rng = np.random.default_rng(4)
+    _, _, tv, ts = _bank("bfloat16", rng)
+    nbrs, sel, live = _expand_case(rng, B=2)
+    calls = []
+    orig = search.expand_score_fused
+
+    def spy(*a):
+        out = orig(*a)
+        calls.append((a, out))
+        return out
+
+    class Cfg:
+        beam_width, space, approx_topk = 2, "cosine", False
+
+    class St:
+        vectors, scales, neighbors = tv, ts, torch.from_numpy(nbrs)
+
+    P = 8
+    pool_ids = torch.from_numpy(rng.integers(0, C, size=(Q, P)).astype(np.int32))
+    pool_d = torch.sort(torch.rand(Q, P, generator=torch.Generator().manual_seed(0)))[0]
+    pool_d[:, P - 2 :] = float("inf")
+    pool = (pool_d, pool_ids, torch.zeros((Q, P), dtype=torch.bool))
+    q = torch.nn.functional.normalize(torch.randn(Q, D, generator=torch.Generator().manual_seed(1)))
+    search.expand_score_fused = spy
+    try:
+        search._expand_round(St, q, Cfg, pool)
+    finally:
+        search.expand_score_fused = orig
+    (args, (ids, dist)), = calls
+    sel_ids, sel_live = args[4], args[5]
+    assert torch.equal(sel_ids, pool_ids[:, :2]) and sel_live.all()
+    want_ids, want_d = graph_cuda.expand_score_plain(tv, ts, St.neighbors, q, sel_ids, sel_live,
+                                                     "cosine")
+    assert torch.equal(ids, want_ids) and torch.equal(dist, want_d)
+
+
 def test_gather_score_wrapper_counts_kernel_launches_only():
     rng = np.random.default_rng(3)
     _, _, tv, ts = _bank("float32", rng)
@@ -80,6 +186,12 @@ def test_gather_score_wrapper_counts_kernel_launches_only():
     assert graph_cuda.LAUNCHES == before  # the CPU takes the plain version
     with pytest.raises(ValueError):
         graph_cuda.gather_score_fused(tv.to("meta"), ts, torch.zeros((2, D)), cand, "cosine")
+    nbrs = torch.zeros((C, 4), dtype=torch.int32)
+    sel, live = torch.zeros((2, 3), dtype=torch.int32), torch.ones((2, 3), dtype=torch.bool)
+    graph_cuda.expand_score_fused(tv, ts, nbrs, torch.zeros((2, D)), sel, live, "cosine")
+    assert graph_cuda.LAUNCHES == before
+    with pytest.raises(ValueError):
+        graph_cuda.expand_score_fused(tv.to("meta"), ts, nbrs, torch.zeros((2, D)), sel, live, "l2")
 
 
 def _pool_case(seed, Qn=6, P=16, Cn=24, id_range=40):

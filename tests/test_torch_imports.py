@@ -1,9 +1,11 @@
-"""The port imports nothing of the JAX package.
+"""The port imports nothing of the JAX package, nor its benchmark script.
 
 Every module of vector_store_tpu_torch/, and chip_smoke.py, is parsed with
 `ast`; an `import vector_store_tpu...`, a `from vector_store_tpu... import`
 or an `import_module("vector_store_tpu...")` that does not name
-vector_store_tpu_torch fails.  (That the port keeps `jax` itself out of
+vector_store_tpu_torch fails, and so does any import of `bench` (the JAX
+package's bench.py: the port keeps its own copy of the corpus recipe in
+probes/data.py).  (That the port keeps `jax` itself out of
 sys.modules is pinned by test_torch_service.py and test_torch_probes.py.)
 """
 
@@ -18,13 +20,16 @@ FILES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / PORT).rglob("*.py
 FILES.append("chip_smoke.py")
 
 
+FORBIDDEN = ("vector_store_tpu", "bench")
+
+
 def _jax_package(name: str) -> bool:
-    top = name.split(".")[0]
-    return top == "vector_store_tpu"
+    return name.split(".")[0] in FORBIDDEN
 
 
 def jax_package_imports(source: str) -> list[str]:
-    """The imports of the JAX package in `source`, as 'line: name'."""
+    """The imports of the JAX package or bench.py in `source`, as
+    'line: name'."""
     found = []
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -59,6 +64,10 @@ def test_port_module_imports_nothing_of_the_jax_package(path):
          ["2: vector_store_tpu.core"]),
         ("def f():\n    from vector_store_tpu.types import IndexParams\n",
          ["2: vector_store_tpu.types"]),
+        ("from bench import make_dataset\n", ["1: bench"]),
+        ("def f():\n    import bench\n", ["2: bench"]),
+        ("import importlib\nimportlib.import_module('bench')\n", ["2: bench"]),
+        ("import benchmark\nfrom .bench import x\nfrom .data import recall_of\n", []),
         ("import vector_store_tpu_torch\nfrom vector_store_tpu_torch.core import ivf\n"
          "from .types import IndexParams\nfrom ..utils import metrics\n", []),
     ],

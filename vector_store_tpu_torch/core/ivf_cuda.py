@@ -10,14 +10,16 @@ csrc/ivf_scan.cu:
                       to TILE of the (query, rank) pairs probing it), the
                       scan (each tile reads its bucket once and keeps a
                       top-k per pair), the merge of the p partial lists.
-  pool_scan_fused  -> ivf_pool_scan (B2): the same scoring, returned as the
-                      raw [Q, p*B] distance pool (optionally over the
-                      int4 split-nibble bank).
+  pool_scan_fused  -> ivf_pool_scan (B2): the same scoring (f32 mode),
+                      returned as the raw [Q, p*B] distance pool
+                      (optionally over the int4 split-nibble bank).  Two
+                      launches: B1's work list, then a scan of its tiles
+                      whose epilogue stores each pair's scores to the pool.
 
 Each wrapper chooses by the device of the tensors it is given: CPU tensors
 go to the plain PyTorch version beside it, CUDA tensors launch the kernel
-(or raise).  LAUNCHES counts B1 calls (B1_KERNELS_PER_CALL launches each)
-and B2 launches, never the plain versions.
+(or raise).  LAUNCHES counts B1 and B2 calls (B1_KERNELS_PER_CALL and
+B2_KERNELS_PER_CALL launches each), never the plain versions.
 
 search_clustered_fused / search_clustered_pool add the centroid route in
 plain torch, as XLA did outside the Pallas kernels.
@@ -39,12 +41,19 @@ SUB_BLOCK = 128
 TILE = 16
 MAX_PAIRS = 8192
 FUSED_MAX_DIMS = 3072
-# CUDA launches of one B1 call (work list, scan, merge)
+# B2 past FUSED_MAX_DIMS takes the row in chunks whose queries stage at
+# most POOL_CHUNK_DIMS dims a pair (pool_chunk), so that two scan blocks
+# fit an SM
+POOL_CHUNK_DIMS = 1024
+# CUDA launches of one B1 call (work list, scan, merge) and of one B2 call
+# (work list, scan)
 B1_KERNELS_PER_CALL = 3
+B2_KERNELS_PER_CALL = 2
 # the plain versions gather [q, p, B, D] f32 blocks; bound that transient
 _PLAIN_BYTES = 1 << 29
 
-# B1 calls (each B1_KERNELS_PER_CALL launches) and B2 launches
+# B1 calls (each B1_KERNELS_PER_CALL launches) and B2 calls (each
+# B2_KERNELS_PER_CALL)
 LAUNCHES = {"search_fused": 0, "pool_scan": 0}
 # B1 launches by score mode (each one also counts in LAUNCHES["search_fused"])
 SCORE_LAUNCHES = {"f32": 0, "qi8": 0, "bf16": 0, "stub": 0}
@@ -102,6 +111,20 @@ def score_query(
     if score == "bf16":
         return queries_prep.to(torch.bfloat16).float(), None
     return queries_prep, None
+
+
+def pool_chunk(D: int, packed: bool) -> int:
+    """Row elements (packed: bytes, two dims each) per chunk of B2's scan:
+    the whole row up to FUSED_MAX_DIMS dims, else equal chunks, each a
+    multiple of 256 elements, whose queries stage at most POOL_CHUNK_DIMS
+    dims; the last chunk may be shorter."""
+    dw = D // 2 if packed else D
+    if D <= FUSED_MAX_DIMS:
+        return dw
+    per = POOL_CHUNK_DIMS // 2 if packed else POOL_CHUNK_DIMS
+    n = -(-dw // per)  # chunks
+    size = -(-dw // n)
+    return -(-size // 256) * 256
 
 
 def _pool_plain(
@@ -227,9 +250,8 @@ def _pad_k(top_d, top_r, k):
 # kernel wrappers
 
 
-def _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D, qsq=True):
-    """Validate what the kernels take; return (vec, |q|^2 per query or None
-    when `qsq` is false, stream)."""
+def _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D):
+    """Validate what the kernels take; return (vec, stream)."""
     dev = vectors.device
     K, B = vectors.shape[:2]
     Q, p = cids.shape
@@ -251,9 +273,8 @@ def _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D, qs
         raise ValueError("vectors must be contiguous")
     row_bytes = vectors.shape[2] * vectors.element_size()
     vec = int(row_bytes % 16 == 0 and vectors.data_ptr() % 16 == 0)
-    qsq = torch.sum(queries_prep * queries_prep, dim=-1) if qsq else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return vec, qsq, stream
+    return vec, stream
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -302,9 +323,7 @@ def search_fused(
     K, B, D = vectors.shape
     Q, p = cids.shape
     _check_score(vectors, space, score)
-    vec, _, stream = _kernel_inputs(
-        vectors, scales, rowid_masked, queries_prep, cids, nsb, D, qsq=False
-    )
+    vec, stream = _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D)
     if score == "stub" and not vec:
         raise ValueError("score='stub' copies rows in 16-byte chunks: row bytes "
                          "and the bank's address must be multiples of 16")
@@ -437,7 +456,11 @@ def pool_scan_fused(
     packed: bool = False,
     nsb: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """B2: distance pool [Q, p*B] f32 (INF where dead or past the prefix)."""
+    """B2: distance pool [Q, p*B] f32 (INF where dead or past the prefix).
+
+    On CUDA: B1's work list, then a scan of its tiles (each reads its
+    bucket once for its pairs) that stores the pool; two launches per
+    chunk of MAX_PAIRS // p queries, no host synchronisation, any D."""
     if nsb is None:
         nsb = _full_prefix(vectors)
     if vectors.device.type == "cpu":
@@ -446,8 +469,6 @@ def pool_scan_fused(
         )
     if vectors.device.type != "cuda":
         raise ValueError(f"no kernel for device {vectors.device}")
-    K, B = vectors.shape[:2]
-    Q, p = cids.shape
     D = queries_prep.shape[1]
     if packed:
         if vectors.dtype != torch.uint8 or 2 * vectors.shape[2] != D:
@@ -457,37 +478,43 @@ def pool_scan_fused(
         code = _DTYPES[vectors.dtype]
     else:
         raise ValueError(f"unsupported bank {vectors.dtype} {tuple(vectors.shape)}")
-    if Q > 65535:
-        raise ValueError(f"query batch {Q} exceeds 65535 (B2's grid)")
-    vec, qsq, stream = _kernel_inputs(
-        vectors, scales, rowid_masked, queries_prep, cids, nsb, D
-    )
+    K, B = vectors.shape[:2]
+    Q, p = cids.shape
+    if p > MAX_PAIRS:
+        raise ValueError(f"B2 takes at most {MAX_PAIRS} probes, got {p}")
+    vec, stream = _kernel_inputs(vectors, scales, rowid_masked, queries_prep, cids, nsb, D)
     out = torch.empty((Q, p * B), dtype=torch.float32, device=vectors.device)
     if Q == 0 or p == 0:
         return out
     from ..kernels.build import load_library
 
-    err = load_library().ivf_pool_scan(
-        code,
-        vectors.data_ptr(),
-        scales.data_ptr(),
-        rowid_masked.data_ptr(),
-        queries_prep.data_ptr(),
-        qsq.data_ptr(),
-        cids.data_ptr(),
-        nsb.data_ptr(),
-        Q,
-        B,
-        D,
-        p,
-        _SPACES[space],
-        int(packed or vectors.dtype == torch.int8),
-        vec,
-        out.data_ptr(),
-        stream,
-    )
-    _check_launch("ivf_pool_scan", err)
-    LAUNCHES["pool_scan"] += 1
+    lib = load_library()
+    qc = MAX_PAIRS // p  # queries per work list
+    n = min(Q, qc) * p
+    ws = torch.empty(3 * n + 2 + 256, dtype=torch.int32, device=vectors.device)
+    for off in range(0, Q, qc):
+        err = lib.ivf_pool_scan(
+            code,
+            vectors.data_ptr(),
+            scales.data_ptr(),
+            rowid_masked.data_ptr(),
+            queries_prep[off].data_ptr(),
+            cids[off].data_ptr(),
+            nsb.data_ptr(),
+            min(qc, Q - off),
+            B,
+            D,
+            pool_chunk(D, packed),
+            p,
+            _SPACES[space],
+            int(packed or vectors.dtype == torch.int8),
+            vec,
+            ws.data_ptr(),
+            out[off].data_ptr(),
+            stream,
+        )
+        _check_launch("ivf_pool_scan", err)
+        LAUNCHES["pool_scan"] += 1
     return out
 
 

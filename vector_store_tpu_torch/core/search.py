@@ -5,8 +5,9 @@ A block of queries advances in lockstep through cfg.search_iters
 expand-gather-score-merge rounds (a Python loop where JAX had `lax.scan`):
 
   1. pick the best `B` unexpanded pool entries per query
-  2. gather their adjacency rows            neighbors[sel] -> [Q, B*R]
-  3. score the candidate rows: kernel B3 (core/graph_cuda.py)
+  2. read their adjacency rows, neighbors[sel] -> [Q, B*R] candidates, and
+  3. score the candidate rows: both in one launch of kernel B3
+     (core/graph_cuda.py::expand_score_fused)
   4. drop repeats and merge into the per-query pool (core/topk.py)
 
 The pool doubles as the visited set: a merge keeps the expanded flag of
@@ -19,7 +20,7 @@ import torch
 
 from .distance import preprocess
 from .graph import GraphConfig, GraphState, routing_entries
-from .graph_cuda import gather_score_fused
+from .graph_cuda import expand_score_fused
 from .topk import INF, SENTINEL, merge_pool, merge_pool_fast, topk_ascending_stable
 
 
@@ -38,33 +39,29 @@ def _init_pool(
     return pool_dist, pool_ids, torch.zeros_like(pool_dist, dtype=torch.bool)
 
 
-def _expand_round(state: GraphState, queries_f32: torch.Tensor, cfg: GraphConfig, pool):
+def select_frontier(pool, B: int):
+    """Step 1: the best B unexpanded entries per query, marked expanded.
+    Returns (sel_ids [Q, B] int32, sel_live [Q, B] bool, the new expanded
+    flags [Q, P])."""
     pool_dist, pool_ids, pool_exp = pool
-    Q = pool_dist.shape[0]
-    B, R, C = cfg.beam_width, cfg.degree, state.capacity
-
-    # 1. best B unexpanded entries per query, marked expanded
     frontier_dist = pool_dist.masked_fill(pool_exp, INF)
     sel_d, sel_pos = topk_ascending_stable(frontier_dist, B)
     sel_ids = torch.gather(pool_ids, 1, sel_pos)
     sel_live = sel_d < INF
     pool_exp = pool_exp | torch.zeros_like(pool_exp).scatter_(1, sel_pos, sel_live)
+    return sel_ids, sel_live, pool_exp
 
-    # 2. their adjacency rows -> candidate ids [Q, B*R]
-    nbrs = state.neighbors[sel_ids.clamp(0, C - 1).long()]  # [Q, B, R]
-    cand_ids = nbrs.masked_fill(~sel_live[..., None], SENTINEL).reshape(Q, B * R)
 
-    # 3. score: sentinels clipped in for the kernel, masked after it
-    is_sent = cand_ids >= C
-    cand_dist = gather_score_fused(
-        state.vectors, state.scales, queries_f32, cand_ids.clamp(0, C - 1), cfg.space
+def _expand_round(state: GraphState, queries_f32: torch.Tensor, cfg: GraphConfig, pool):
+    sel_ids, sel_live, pool_exp = select_frontier(pool, cfg.beam_width)
+    # 2-3. adjacency rows -> candidates [Q, B*R], scored; (SENTINEL, INF)
+    # for dead beams and adjacency padding
+    cand_ids, cand_dist = expand_score_fused(
+        state.vectors, state.scales, state.neighbors, queries_f32, sel_ids, sel_live, cfg.space
     )
-    cand_dist = cand_dist.masked_fill(is_sent, INF)
-    cand_ids = cand_ids.masked_fill(is_sent, SENTINEL)
-
     # 4. merge into the pool (repeats keep their expanded copy)
     merge = merge_pool_fast if cfg.approx_topk else merge_pool
-    return merge(pool_dist, pool_ids, pool_exp, cand_dist, cand_ids)
+    return merge(pool[0], pool[1], pool_exp, cand_dist, cand_ids)
 
 
 def search_pool(

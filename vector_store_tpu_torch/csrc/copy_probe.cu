@@ -89,12 +89,12 @@ __global__ void __launch_bounds__(kProbeThreads)
   float v;
   if constexpr (SCORE) {
     float* qs = reinterpret_cast<float*>(smem);
-    stage_query<int8_t, false>(q + (s % kQRows) * D, qs, D, n4);
+    stage_query<int8_t>(q + (s % kQRows) * D, qs, D, n4);
     __syncthreads();
     float best = CUDART_INF_F;
     for (int r = warp; r < B; r += nwarps) {
       float dot = 0.0f, sq = 0.0f;  // sq is unused and compiled away
-      row_dot<int8_t, false>(src + static_cast<size_t>(r) * D, qs, D, n4, lane, dot, sq);
+      row_dot<int8_t>(src + static_cast<size_t>(r) * D, qs, D, n4, lane, dot, sq);
       best = fminf(best, warp_sum(dot));
     }
     if (lane == 0) red[warp] = best;

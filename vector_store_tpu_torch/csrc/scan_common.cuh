@@ -1,5 +1,6 @@
-// Device helpers shared by the scan kernels (ivf_scan.cu, graph_gather.cu):
-// one warp scores one stored row against a query staged in shared memory.
+// Device helpers shared by the kernels (ivf_scan.cu, graph_gather.cu,
+// copy_probe.cu): widening stored elements to f32, staging a query in
+// shared memory, one warp scoring one stored row against it.
 //
 // Each lane loads 16 bytes of the row at a time, so a warp streams 512
 // contiguous bytes per step.  The query is staged transposed by 16-byte
@@ -25,34 +26,45 @@ __device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); 
 // sign-extend a 4-bit code
 __device__ __forceinline__ float nibble(int v) { return static_cast<float>((v ^ 8) - 8); }
 
+// Element i of a 32-bit word of T, widened to f32 by integer ops, after
+// prep<T> on the word (no conversion instruction: I2F runs at a quarter
+// of the FMA rate).
+template <typename T>
+__device__ __forceinline__ float elem(unsigned w, int i);
+template <>
+__device__ __forceinline__ float elem<float>(unsigned w, int) {
+  return __uint_as_float(w);
+}
+template <>
+__device__ __forceinline__ float elem<__nv_bfloat16>(unsigned w, int i) {
+  return __uint_as_float(i == 0 ? w << 16 : w & 0xffff0000u);
+}
+// w holds four int8 with their sign bits flipped (w ^ 0x80808080): byte i
+// goes into the mantissa of 2^23, which is 2^23 + 128 + x exactly
+template <>
+__device__ __forceinline__ float elem<int8_t>(unsigned w, int i) {
+  return __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7440u + i)) - 8388736.0f;
+}
+template <typename T>
+__device__ __forceinline__ unsigned prep(unsigned w) {
+  return sizeof(T) == 1 ? w ^ 0x80808080u : w;
+}
+
 // Stage one query [D] into shared memory in the layout row_dot reads.
 // A row of dw stored elements is n4 full 16-byte chunks of N = 16/sizeof(T)
 // elements, then a tail.  Element t of chunk c is read by lane c % 32, so its
 // query weight goes to qs[t * n4 + c]; tail elements keep their index.
-// Packed rows hold dims i and i + D/2 in byte i: the low dims fill
-// qs[0, N*n4), the high dims qs[N*n4, 2*N*n4), and tail byte i puts its
-// pair at qs[2i], qs[2i + 1].
-template <typename T, bool PACKED>
+template <typename T>
 __device__ void stage_query(const float* __restrict__ q, float* qs, int dw, int n4) {
   constexpr int N = 16 / sizeof(T);
   for (int i = threadIdx.x; i < dw; i += blockDim.x) {
     const int c = i / N, t = i % N;
-    if constexpr (PACKED) {
-      if (c < n4) {
-        qs[t * n4 + c] = q[i];
-        qs[N * n4 + t * n4 + c] = q[i + dw];
-      } else {
-        qs[2 * i] = q[i];
-        qs[2 * i + 1] = q[i + dw];
-      }
-    } else {
-      qs[c < n4 ? t * n4 + c : i] = q[i];
-    }
+    qs[c < n4 ? t * n4 + c : i] = q[i];
   }
 }
 
 // This lane's share of x.q and |x|^2 for one stored row.
-template <typename T, bool PACKED>
+template <typename T>
 __device__ __forceinline__ void row_dot(const T* __restrict__ row, const float* __restrict__ qs,
                                         int dw, int n4, int lane, float& dot, float& sq) {
   constexpr int N = 16 / sizeof(T);
@@ -62,33 +74,15 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ row, const float* 
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int t = 0; t < N; ++t) {
-      if constexpr (PACKED) {
-        const int b = static_cast<int>(e[t]);
-        const float lo = nibble(b & 15), hi = nibble(b >> 4);
-        dot = fmaf(lo, qs[t * n4 + c], dot);
-        dot = fmaf(hi, qs[N * n4 + t * n4 + c], dot);
-        sq = fmaf(lo, lo, sq);
-        sq = fmaf(hi, hi, sq);
-      } else {
-        const float x = to_f(e[t]);
-        dot = fmaf(x, qs[t * n4 + c], dot);
-        sq = fmaf(x, x, sq);
-      }
+      const float x = to_f(e[t]);
+      dot = fmaf(x, qs[t * n4 + c], dot);
+      sq = fmaf(x, x, sq);
     }
   }
   for (int i = N * n4 + lane; i < dw; i += 32) {
-    if constexpr (PACKED) {
-      const int b = static_cast<int>(row[i]);
-      const float lo = nibble(b & 15), hi = nibble(b >> 4);
-      dot = fmaf(lo, qs[2 * i], dot);
-      dot = fmaf(hi, qs[2 * i + 1], dot);
-      sq = fmaf(lo, lo, sq);
-      sq = fmaf(hi, hi, sq);
-    } else {
-      const float x = to_f(row[i]);
-      dot = fmaf(x, qs[i], dot);
-      sq = fmaf(x, x, sq);
-    }
+    const float x = to_f(row[i]);
+    dot = fmaf(x, qs[i], dot);
+    sq = fmaf(x, x, sq);
   }
 }
 

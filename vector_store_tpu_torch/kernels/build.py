@@ -48,12 +48,15 @@ _SIGNATURES = {
     "ivf_search_fused": [_I] * 2 + [_P] * 6 + [_I] * 8 + [_P] * 4,
     # cids, N, order, tile_start, tile_n, meta, stream
     "ivf_b1_worklist": [_P, _I] + [_P] * 5,
-    # dtype, vectors, scales, rowid, queries, qsq, cids, nsb,
-    # Q, B, D, p, space, scaled, vec, out, stream
-    "ivf_pool_scan": [_I] + [_P] * 7 + [_I] * 7 + [_P] * 2,
+    # dtype, vectors, scales, rowid, queries, cids, nsb,
+    # Q, B, D, p, space, scaled, vec, ws, out, stream
+    "ivf_pool_scan": [_I] + [_P] * 6 + [_I] * 8 + [_P] * 3,
     # dtype, vectors, scales, queries, cand,
     # Q, BR, C, D, space, scaled, vec, out, stream
     "graph_gather_score": [_I] + [_P] * 4 + [_I] * 7 + [_P] * 2,
+    # dtype, vectors, scales, queries, neighbors, sel_ids, sel_live,
+    # Q, B, R, C, D, space, scaled, vec, out_ids, out, stream
+    "graph_expand_score": [_I] + [_P] * 6 + [_I] * 8 + [_P] * 3,
     # q, bank, nblocks, B, D, score, nbuf, acc, stream
     "copy_probe_stream": [_P] * 2 + [_I] * 5 + [_P] * 2,
 }

@@ -6,8 +6,8 @@
 
 Ports of scripts/probe_dma.py, probe_fused_sweep.py and probe_two_stage.py.
 They time with CUDA events and refuse to run without a card.  The two IVF
-probes build the bench corpus with bench.py's `make_dataset` (numpy only;
-run from the repository root) and cache the built index under the JAX
+probes build the bench corpus with `probes.data.make_dataset` (bench.py's
+recipe and seed, numpy only) and cache the built index under the JAX
 scripts' name, vst_ivf_{N}_int8_rpb{RPB}.npz, in the temporary directory
 (TMPDIR, else /tmp) and the snapshot format both packages read.  Importing
 a probe imports no jax.
@@ -74,11 +74,9 @@ def load_or_build(n: int, rpb: int, cluster_min: int | None = None):
     exists and holds that index, else built with one add() and saved.  A
     snapshot that does not load, or holds another index, is left as it is
     and not overwritten."""
-    from bench import make_dataset
-
-    from ..types import IndexParams
-
     from ..core.ivf import IvfIndex
+    from ..types import IndexParams
+    from .data import make_dataset
 
     x, queries = make_dataset(n, DIM, 2048)
     snap = snapshot_path(n, rpb)

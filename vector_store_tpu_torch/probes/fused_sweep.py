@@ -42,9 +42,8 @@ def parse(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> int:
-    from bench import recall_of
-
     from . import card_line, load_or_build, require_cuda, time_ms
+    from .data import recall_of
     from ..core import ivf_cuda as ic
 
     args = parse(argv)

@@ -37,9 +37,8 @@ def parse(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> int:
-    from bench import recall_of
-
     from . import card_line, load_or_build, require_cuda, time_ms
+    from .data import recall_of
     from ..core import ivf_cuda as ic
     from ..core.ivf import derive_coarse, search_two_stage
     from ..core.topk import topk_ascending
