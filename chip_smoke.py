@@ -76,7 +76,30 @@ parallel), then:
      bank, measures its GB/s over a >= 1 GiB bank at blocks of 128, 384,
      768 and 1,536 rows, score on and off, and prints B1's and B2's GB/s
      of rows read on the bench-geometry index (phase 7) as a share of B4's
-     score-on rate and of its copy rate at 128 rows.
+     score-on rate and of its copy rate at 128 rows;
+ 10. text search: (a) over HTTP on the card, a text index takes 2,000
+     documents (zipf over 20,000 words, 24 words each) and answers plain,
+     +/- operator, phrase and prefix queries, each held against a numpy
+     BM25 oracle written here, again after 100 documents are replaced and
+     100 removed; (b) a BM25Index of 100,000 such documents on the card:
+     the top-10 of 32 queries against the oracle (keys in order wherever
+     scores are distinct, by score elsewhere), the same answers from a
+     device="cpu" index on a 10,000-document prefix; prints docs/s of
+     ingest, ms of the device pass for 32 queries, end-to-end search() QPS
+     over turns and the phase's peak device memory, which must stay under
+     8 GB;
+ 11. (run after phase 6, on its graph) saves the 131,072 x 768 graph with
+     core/persist.py, loads it and checks that 256 queries return the same
+     ids through B3; prints seconds and the file's size;
+ 12. the ingest pipeline: MemDb.preload of 250,000 x 768 rows ->
+     MonitorIndexes -> monitor_items -> an int8 IVF index made with
+     reserve_rows, three times over (vec/s, median and range); recall@10
+     >= 0.90 of 256 queries through the index handle (B1 must launch);
+     then 2,000 overwrites and 1,000 tombstones through the source's live
+     events, and the count and answers that follow from them; B1 is held
+     against its plain version on that index's bank (256 queries, its
+     probes, k 10) before the searches and after the burst, and its launch
+     count is taken over the phase's searches, from 0 after the fill.
 
 Any failed phase raises and the exit code is non-zero.  The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' record, each
@@ -673,6 +696,15 @@ def big_bucket(torch, device="cuda", n=65_536, m=10_000):
         raise AssertionError(f"k 10 on the big bucket did not go through B1 alone: {launches[10]}")
     if launches[50]["pool_scan"] == 0 or launches[50]["search_fused"] != 0:
         raise AssertionError(f"k 50 on the big bucket did not go through B2 alone: {launches[50]}")
+    # recall@10 against the exact f32 oracle, the corpus queries and the
+    # near-copies apart: an int8 bank cannot rank rows that differ by less
+    # than its quantization step (tests/test_torch_ivf.py::
+    # test_skewed_ingest_recalls_like_jax shows the JAX package agrees)
+    truth = _oracle(torch, corpus, skew, queries, 10, device)
+    rec_corpus = _recall(ids10[:256].tolist(), truth[:256])
+    rec_skew = _recall(ids10[256:].tolist(), truth[256:])
+    log(f"  recall@10 vs the exact f32 oracle: corpus queries {rec_corpus:.4f}, queries among the "
+        f"{m} near-copies {rec_skew:.4f}, all {(rec_corpus + rec_skew) / 2:.4f}")
     # corpus rows find themselves (row 0 excepted: 10,000 near-copies surround it)
     self_found = (ids10[1:256, 0] == np.arange(1, 256)).all()
     if max(err, err2, err3) > TOL or min(agree, agree2) < 1.0 or not self_found:
@@ -1192,7 +1224,7 @@ def graph_geometry(torch, n=N_GRAPH, device="cuda"):
         log(f"  one insert block (1,024 rows, add()): {out['insert_block_ops']} device operations "
             f"as the profiler records them, {b3} of them B3 (B3 launches by its count: "
             f"{launched})")
-    return out
+    return out, idx, queries
 
 
 def graph_rounds(torch, idx, queries, insert=False, capture=None):
@@ -1544,6 +1576,537 @@ def phase_copy_probe(torch, device="cuda"):
 
 
 # --------------------------------------------------------------------------
+# phase 10: text search
+
+
+TEXT_K1, TEXT_B = 1.2, 0.75
+TEXT_TOL = 1e-4  # relative: f32 scores on the device against the f64 oracle
+N_TEXT_HTTP, N_TEXT, N_TEXT_CPU = 2000, 100_000, 10_000
+TEXT_VOCAB, TEXT_WORDS = 20_000, 24
+TEXT_MAX_BYTES = 8 << 30
+
+
+def _term_id(word: str) -> int:
+    """FNV-1a 32-bit folded into [1, 2^22): the index's hashed vocabulary."""
+    h = 0x811C9DC5
+    for b in word.encode("utf-8"):
+        h = ((h ^ b) * 0x01000193) & 0xFFFFFFFF
+    return h % ((1 << 22) - 1) + 1
+
+
+class TextOracle:
+    """A straightforward numpy BM25 over the live documents (the oracle of
+    tests/test_bm25.py, vectorised): k1 1.2, b 0.75, idf = ln(1 + (n - df +
+    0.5) / (df + 0.5)) over live documents, tokens [a-z0-9]+ of the
+    lowercased text, hashed as the index hashes them.  Scores in f64."""
+
+    def __init__(self):
+        self.docs = {}  # key -> token ids in order
+        self.words = {}  # word -> term id, every word ever added
+        self._m = None
+
+    def put(self, key, text):
+        words = re.findall(r"[a-z0-9]+", text.lower())
+        for w in words:
+            if w not in self.words:
+                self.words[w] = _term_id(w)
+        self.docs[key] = [self.words[w] for w in words]
+        self._m = None
+
+    def put_rows(self, keys, rows, table):
+        """Documents given as rows of word numbers; `table[w]` is the id."""
+        self._m = (list(keys), table[rows], np.full(len(rows), rows.shape[1], dtype=np.int64))
+
+    def remove(self, key):
+        self.docs.pop(key, None)
+        self._m = None
+
+    def matrix(self):
+        if self._m is None:
+            keys = list(self.docs)
+            width = max(len(d) for d in self.docs.values())
+            m = np.zeros((len(keys), width), dtype=np.int64)
+            for j, k in enumerate(keys):
+                m[j, : len(self.docs[k])] = self.docs[k]
+            self._m = (keys, m, np.array([len(self.docs[k]) for k in keys]))
+        return self._m
+
+    def df(self, term: int) -> int:
+        return int((self.matrix()[1] == term).any(1).sum())
+
+    def scores(self, terms) -> np.ndarray:
+        _, m, length = self.matrix()
+        n = len(m)
+        norm = TEXT_K1 * (1.0 - TEXT_B + TEXT_B * length / max(length.sum() / n, 1.0))
+        out = np.zeros(n)
+        for t in dict.fromkeys(terms):
+            tf = (m == t).sum(1)
+            df = int((tf > 0).sum())
+            out += np.log(1.0 + (n - df + 0.5) / (df + 0.5)) * tf * (TEXT_K1 + 1.0) / (tf + norm)
+        return out
+
+    def has(self, term: int) -> np.ndarray:
+        return (self.matrix()[1] == term).any(1)
+
+    def phrase(self, terms) -> np.ndarray:
+        m = self.matrix()[1]
+        w = m.shape[1] - len(terms) + 1
+        hit = np.ones((len(m), max(w, 0)), dtype=bool)
+        for j, t in enumerate(terms):
+            hit &= m[:, j : j + w] == t
+        return hit.any(1)
+
+    def prefix(self, prefix: str, cap=8):
+        """Ids of the live words that start with `prefix`, the most
+        frequent first (alphabetical among equals), at most `cap`."""
+        live = [(w, t) for w, t in sorted(self.words.items()) if w.startswith(prefix)]
+        live = [(self.df(t), t) for w, t in live]
+        live = [x for x in live if x[0] > 0]
+        live.sort(key=lambda x: -x[0])
+        return [t for _, t in live[:cap]]
+
+    def expect(self, spec: dict, k: int):
+        """(keys, scores) the index must answer `spec` with: documents that
+        satisfy its masks with a score above 0, best first (lower row first
+        among equals); a phrase is checked over the best 4k of those, as
+        the index overfetches."""
+        keys, _, _ = self.matrix()
+        s = self.scores(spec["scored"])
+        ok = s > 0
+        for t in spec.get("required", ()):
+            ok &= self.has(t)
+        for t in spec.get("forbidden", ()):
+            ok &= ~self.has(t)
+        order = np.argsort(-s, kind="stable")
+        order = order[ok[order]]
+        if spec.get("phrase"):
+            order = order[: 4 * k]
+            order = order[self.phrase(spec["phrase"])[order]]
+        return [keys[j] for j in order[: k + 1]], s[order[: k + 1]], dict(zip(keys, s)), ok
+
+
+def _check_text_answer(label, oracle, spec, k, got_keys, got_scores=None) -> int:
+    """One answer against the oracle: as many hits, every hit satisfies the
+    query, the hits' oracle scores are the best k (so ties may swap), keys
+    equal wherever a score stands apart from its neighbours, and the
+    index's own scores within TEXT_TOL.  Returns the keys compared."""
+    want_keys, want_s, score_of, ok = oracle.expect(spec, k)
+    n = min(k, len(want_keys))
+    if len(got_keys) != n:
+        raise AssertionError(f"{label}: {len(got_keys)} hits, oracle {n}")
+    keys = oracle.matrix()[0]
+    row_of = {key: j for j, key in enumerate(keys)}
+    for key in got_keys:
+        if key not in row_of or not ok[row_of[key]]:
+            raise AssertionError(f"{label}: {key!r} does not satisfy the query")
+    got_s = np.array([score_of[key] for key in got_keys])
+    if not np.allclose(got_s, want_s[:n], rtol=TEXT_TOL, atol=1e-9):
+        raise AssertionError(f"{label}: scores of the hits {got_s} != oracle's best {want_s[:n]}")
+    if got_scores is not None and not np.allclose(got_scores, want_s[:n], rtol=TEXT_TOL, atol=1e-6):
+        raise AssertionError(f"{label}: index scores {got_scores} vs oracle {want_s[:n]}")
+    compared = 0
+    for j in range(n):
+        left = j == 0 or want_s[j - 1] - want_s[j] > TEXT_TOL * want_s[j]
+        right = j + 1 >= len(want_s) or want_s[j] - want_s[j + 1] > TEXT_TOL * want_s[j]
+        if left and right:
+            compared += 1
+            if got_keys[j] != want_keys[j]:
+                raise AssertionError(f"{label}: position {j}: {got_keys[j]!r} != {want_keys[j]!r}")
+    return compared
+
+
+def _zipf_rows(n, seed=11):
+    """The JAX bench's text recipe: n documents of 24 words drawn from a
+    zipf law over 20,000 words (word w is 'w<w>')."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, TEXT_VOCAB + 1)
+    p /= p.sum()
+    return rng.choice(TEXT_VOCAB, size=(n, TEXT_WORDS), p=p), rng, p
+
+
+def _text_specs(oracle, tid) -> list:
+    """The HTTP queries, each with what it means: plain, operators (+ is
+    AND, a leading - forbids), a phrase (both words required, adjacent, in
+    order) and prefixes (the live expansions, OR'd)."""
+    specs = [
+        ("w3 w17 w250", {"scored": [tid(3), tid(17), tid(250)]}),
+        ("w0 w1", {"scored": [tid(0), tid(1)]}),
+        ("w7 +w3", {"scored": [tid(7), tid(3)], "required": [tid(7), tid(3)]}),
+        ("w7 w9 -w1 -w0", {"scored": [tid(7), tid(9)], "forbidden": [tid(1), tid(0)]}),
+        ("w5 -w2", {"scored": [tid(5)], "required": [tid(5)], "forbidden": [tid(2)]}),
+        ('"w1 w0"', {"scored": [tid(1), tid(0)], "required": [tid(1), tid(0)],
+                     "phrase": [tid(1), tid(0)]}),
+        ('"w2 w1"', {"scored": [tid(2), tid(1)], "required": [tid(2), tid(1)],
+                     "phrase": [tid(2), tid(1)]}),
+    ]
+    for prefix in ("w12", "w300", "w7"):
+        specs.append((prefix + "*", {"scored": oracle.prefix(prefix)}))
+    return specs
+
+
+async def phase_text_service(torch, device="cuda", n=N_TEXT_HTTP):
+    """(a) A text index over HTTP on the card: create, add n documents,
+    search, replace and remove, each answer held against the oracle."""
+    import aiohttp
+
+    from vector_store_tpu_torch import IndexId, new_index_factory, run
+
+    rows, rng, _ = _zipf_rows(n)
+    texts = [" ".join(f"w{t}" for t in row) for row in rows]
+    oracle = TextOracle()
+    tid = lambda w: _term_id(f"w{w}")  # noqa: E731
+    server, engine = await run("127.0.0.1:0", new_index_factory(device=device))
+    out = {}
+    try:
+        base = f"http://{server.addr}/api/v1/text-search"
+        async with aiohttp.ClientSession() as http:
+            async with http.put(base + "/articles") as r:
+                if r.status != 200:
+                    raise AssertionError(f"PUT text index: {r.status} {await r.text()}")
+            handle = await engine.get_index(IndexId("articles"))
+            idx = handle.backend.index
+            if type(idx).__name__ != "BM25Index" or idx.device.type != device:
+                raise AssertionError(f"PUT made {type(idx).__name__} on {idx.device}")
+            sem = asyncio.Semaphore(IN_FLIGHT)
+
+            async def add(key, text):
+                async with sem:
+                    async with http.post(base + "/articles/add", json={"id": key, "text": text}) as r:
+                        if r.status != 200:
+                            raise AssertionError(f"POST text add: {r.status} {await r.text()}")
+                oracle.put(key, text)
+
+            async def search(text, limit):
+                async with http.post(base + "/articles/search",
+                                     json={"text": text, "limit": limit}) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"POST text search: {r.status} {await r.text()}")
+                    return await r.json()
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(add(f"d{i}", t) for i, t in enumerate(texts)))
+            out["http_docs_s"] = n / (time.perf_counter() - t0)
+            async with http.get(base) as r:
+                if await r.json() != ["articles"]:
+                    raise AssertionError("the text index is not listed")
+            async with http.get(f"http://{server.addr}/api/v1/indexes") as r:
+                if await r.json() != []:
+                    raise AssertionError("the text index shows in the ANN listing")
+
+            async def check(stage):
+                compared = 0
+                specs = _text_specs(oracle, tid)
+                answers = await asyncio.gather(*(search(text, 10) for text, _ in specs))
+                for (text, spec), got in zip(specs, answers):
+                    compared += _check_text_answer(f"text over HTTP, {stage}, {text!r}", oracle,
+                                                   spec, 10, got)
+                return len(specs), compared
+
+            n_q, compared = await check("after ingest")
+            # replace 100 documents by id (an add of a live id), remove 100 more
+            new_rows = _zipf_rows(100, seed=12)[0]
+            await asyncio.gather(*(
+                add(f"d{i * 7}", " ".join(f"w{t}" for t in row)) for i, row in enumerate(new_rows)))
+            gone = [f"d{i * 7 + 3}" for i in range(100)]
+            await handle.remove_batch([(k,) for k in gone])
+            for k in gone:
+                oracle.remove(k)
+            if await handle.count() != len(oracle.docs):
+                raise AssertionError(
+                    f"count {await handle.count()}, the oracle holds {len(oracle.docs)}")
+            n_q2, compared2 = await check("after replace and remove")
+            log(f"  text index over HTTP on {idx.device}: {n} documents added at "
+                f"{out['http_docs_s']:.0f} docs/s ({IN_FLIGHT} in flight); {n_q} queries (plain, "
+                f"+/-, phrase, prefix) equal the oracle's answers ({compared} keys at distinct "
+                f"scores compared in order, the rest by score); after 100 replaced and 100 "
+                f"removed again ({compared2} keys in order)")
+    finally:
+        await server.close()
+        await engine.close()
+    return out
+
+
+def phase_text_index(torch, device="cuda", n=N_TEXT, n_cpu=N_TEXT_CPU):
+    """(b) A BM25Index of n documents on the card, the JAX bench's recipe:
+    the top-10 of 32 queries against the oracle, the same answers from a
+    device="cpu" index on a prefix, and the layer's timings."""
+    from vector_store_tpu_torch.text import bm25
+
+    rows, rng, p = _zipf_rows(n)
+    table = np.array([_term_id(f"w{w}") for w in range(TEXT_VOCAB)], dtype=np.int64)
+    texts = [" ".join(f"w{t}" for t in row) for row in rows]
+    q_rows = [rng.choice(TEXT_VOCAB, size=3, p=p) for _ in range(32)]
+    q_batch = [" ".join(f"w{t}" for t in row) for row in q_rows]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    idx = bm25.BM25Index(initial_capacity=n, device=device)
+    t0 = time.perf_counter()
+    for text in texts:
+        idx.add(text)
+    out = {"docs_s": n / (time.perf_counter() - t0)}
+    t0 = time.perf_counter()
+    hits = idx.search(q_batch, 10)  # the first search uploads the rows
+    first_s = time.perf_counter() - t0
+
+    oracle = TextOracle()
+    oracle.put_rows(range(n), rows, table)
+    compared = 0
+    for j, (row, got) in enumerate(zip(q_rows, hits)):
+        spec = {"scored": [int(table[w]) for w in row]}
+        compared += _check_text_answer(f"BM25Index query {j} {q_batch[j]!r}", oracle, spec, 10,
+                                       [s for s, _ in got], np.array([v for _, v in got]))
+    if compared < 32:
+        raise AssertionError(f"only {compared} keys stood at distinct scores")
+
+    # the same answers from a CPU index, on a prefix of the documents
+    pair = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        small = bm25.BM25Index(initial_capacity=n_cpu, device=dev)
+        for text in texts[:n_cpu]:
+            small.add(text)
+        pair[dev] = small.search(q_batch, 10)
+    same = 0
+    for a, b in zip(pair[device], pair["cpu"]):
+        sa, sb = np.array([v for _, v in a]), np.array([v for _, v in b])
+        if len(a) != len(b) or not np.allclose(sa, sb, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{device} and cpu indexes score differently: {a} vs {b}")
+        same += [s for s, _ in a] == [s for s, _ in b]
+    small_oracle = TextOracle()
+    small_oracle.put_rows(range(n_cpu), rows[:n_cpu], table)
+    for j, (row, got) in enumerate(zip(q_rows, pair["cpu"])):
+        _check_text_answer(f"cpu BM25Index query {j}", small_oracle,
+                           {"scored": [int(table[w]) for w in row]}, 10, [s for s, _ in got],
+                           np.array([v for _, v in got]))
+
+    log(f"  BM25Index on {idx.device}: {n} documents ({TEXT_WORDS} words, zipf over {TEXT_VOCAB}) "
+        f"added at {out['docs_s']:.0f} docs/s (host); first search (upload of "
+        f"{idx._dev_rows} x {bm25.MAX_DOC_TERMS} terms and counts, "
+        f"{idx._dev_rows * bm25.MAX_DOC_TERMS * 8 / 1e6:.0f} MB) {first_s:.2f} s; top-10 of 32 "
+        f"queries equal the oracle's ({compared} keys at distinct scores in order, all by score, "
+        f"scores within {TEXT_TOL:g}); {n_cpu}-document prefix: {device} and cpu indexes agree "
+        f"({same}/32 answers in the same order, all scores within 1e-5), cpu equals the oracle")
+    if device != "cuda":
+        return out
+
+    # timings: the device pass alone and search() end to end, in turns
+    with idx._lock:
+        arrays = idx._device_arrays()
+        parsed = [bm25.query_mod.parse(t, expander=idx) for t in q_batch]
+        packed = [torch.from_numpy(a).to(idx.device) for a in idx._pack_queries(parsed)]
+        avg = torch.tensor(max(idx._total_len / idx._size, 1.0), dtype=torch.float32,
+                           device=idx.device)
+    passes, e2e = [], []
+    for _ in range(4):
+        passes.append(_time_ms(torch, lambda: bm25._score_topk(*arrays, *packed, avg, 10), 3))
+        t0 = time.perf_counter()
+        for _ in range(3):
+            idx.search(q_batch, 10)
+        e2e.append(3 * len(q_batch) / (time.perf_counter() - t0))
+    out["pass_ops"] = _count_kernels(torch, lambda: bm25._score_topk(*arrays, *packed, avg, 10))
+    out["pass_ms"] = (float(np.median(passes)), min(passes), max(passes))
+    out["search_qps"] = (float(np.median(e2e)), min(e2e), max(e2e))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - mem0
+    pm, qps = out["pass_ms"], out["search_qps"]
+    bytes_ms = idx._dev_rows * (bm25.MAX_DOC_TERMS * 8 + 5) / HBM_BYTES_S * 1e3
+    log(f"  device pass for 32 queries over {idx._dev_rows} rows: {pm[0]:.3f} ms "
+        f"[{pm[1]:.3f}-{pm[2]:.3f}] ({32e3 / pm[0]:.0f} queries/s), {out['pass_ops']} device "
+        f"operations, the rows read once would take {bytes_ms:.3f} ms; search() end to end "
+        f"(parse, pass, readback, filter) {qps[0]:.0f} QPS [{qps[1]:.0f}-{qps[2]:.0f}] over 4 "
+        f"turns; peak device memory of the phase {out['peak_bytes'] / 2**20:.0f} MiB")
+    if out["peak_bytes"] > TEXT_MAX_BYTES:
+        raise AssertionError(f"text search peaked at {out['peak_bytes']} bytes of device memory")
+    del idx, arrays
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 11: the graph's snapshot
+
+
+def phase_graph_snapshot(torch, idx, queries, device="cuda"):
+    """Save a built graph, load it, and ask both the same 256 queries."""
+    import tempfile
+
+    from vector_store_tpu_torch.core import graph_cuda, persist
+
+    q = queries[:256]
+    _, want = idx.search(q, 10)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "graph.npz")
+        t0 = time.perf_counter()
+        persist.save(path, idx, keymap_blob={"rows": idx.frontier})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded, blob = persist.load(path, device=device)
+        _sync(torch, device)
+        load_s = time.perf_counter() - t0
+    if blob != {"rows": idx.frontier} or loaded.count() != idx.count() or loaded.cfg != idx.cfg:
+        raise AssertionError(f"snapshot changed the index: {blob} {loaded.count()} {loaded.cfg}")
+    for key in graph_cuda.LAUNCHES:
+        graph_cuda.LAUNCHES[key] = 0
+    _, got = loaded.search(q, 10)
+    launches = graph_cuda.LAUNCHES["expand_score"]
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"the loaded graph answers differently on {int((got != want).any(1).sum())} of 256 queries")
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the loaded graph's search did not launch B3")
+    log(f"  graph snapshot ({idx.frontier} x {idx.cfg.dims} {idx.cfg.dtype}, degree "
+        f"{idx.cfg.degree}, router {idx.cfg.route_k}): saved in {save_s:.2f} s, "
+        f"{size / 2**20:.1f} MiB (npz, compressed), loaded in {load_s:.2f} s; 256 queries "
+        f"return the same ids; B3 launches of that search: {launches}")
+    return {"save_s": save_s, "load_s": load_s, "bytes": size, "launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 12: the ingest pipeline
+
+
+N_PIPELINE, N_OVERWRITE, N_TOMBSTONE, PIPELINE_TURNS = 250_000, 2000, 1000, 3
+
+
+def _b1_on_index(torch, idx, queries, device, k=10):
+    """B1 against its plain version on a served IvfIndex's own bank, routed
+    as the index routes: (max |d err|, share of ids equal, positions
+    compared).  On the CPU (a rehearsal) the wrapper is the plain version."""
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+
+    st = idx.state
+    qf, cids, _ = ic.route(st, torch.as_tensor(queries, device=device), "cosine", idx.probes)
+    rid_masked, nsb = ic.scan_masks(st)
+    d_k, r_k = ic.search_fused(st.vectors, st.scales, rid_masked, qf, cids, "cosine", k, nsb)
+    d_p, r_p = ic.search_fused_plain(st.vectors, st.scales, rid_masked, qf, cids, "cosine", k + 1, nsb)
+    _sync(torch, device)
+    return _compare_topk(torch, d_k, r_k.long(), d_p, r_p.long(), k)
+
+
+async def phase_pipeline(torch, device="cuda", n=N_PIPELINE, turns=PIPELINE_TURNS):
+    """The JAX bench's config-3 pipeline: MemDb.preload of n x 768 rows ->
+    MonitorIndexes -> monitor_items -> an int8 IVF index sized up front
+    (reserve_rows), `turns` times over; recall@10 of the last; then a burst
+    of overwrites and tombstones.  The rows are the bench corpus recipe
+    (clustered), not the JAX bench's plain gaussian: on unclustered
+    768-d rows recall@10 says nothing."""
+    from vector_store_tpu_torch import IndexId, IndexParams, Limit
+    from vector_store_tpu_torch.core import ivf_cuda
+    from vector_store_tpu_torch.engine.ann_index import AnnIndexFactory
+    from vector_store_tpu_torch.engine.engine import new_engine
+    from vector_store_tpu_torch.ingest import MemDb, MonitorIndexes
+
+    corpus = make_corpus(n, DIM, seed=SEED + 7)
+    queries = make_queries(corpus, 256, seed=SEED + 7)
+    rates = []
+    for turn in range(turns):
+        db = MemDb()
+        db.add_table("vectors", ("id",), DIM)
+        db.preload("vectors", [(i,) for i in range(n)], corpus)
+        db.add_index("ks.stream", "vectors",
+                     IndexParams(dimensions=DIM, space="cosine", dtype="int8"))
+        engine = await new_engine(AnnIndexFactory(backend="ivf", reserve_rows=n, device=device))
+        monitor = MonitorIndexes(db, engine, tick_s=0.05)
+        t0 = time.perf_counter()
+        monitor.spawn()
+        try:
+            handle = None
+            deadline = t0 + 300
+            while True:
+                handle = handle or await engine.get_index(IndexId("ks.stream"))
+                count = 0 if handle is None else await handle.count()
+                if count == n:
+                    break
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"pipeline stuck at {count} of {n} rows")
+                await asyncio.sleep(0.02)
+            _sync(torch, device)
+            rates.append(n / (time.perf_counter() - t0))
+            if turn < turns - 1:
+                continue
+            idx = handle.backend.index
+            if type(idx).__name__ != "IvfIndex" or idx.dtype != "int8":
+                raise AssertionError(f"the pipeline filled a {type(idx).__name__} {idx.dtype}")
+
+            async def ann(vecs, limit=10):
+                res = await asyncio.gather(*(handle.ann(v, Limit(limit)) for v in vecs))
+                return [[k[0] for k in keys] for keys, _ in res]
+
+            # B1 at this path's shape, held against its plain version on the
+            # filled bank; then the counts go to 0 just before the searches
+            # that are this phase's main path
+            plain = _b1_on_index(torch, idx, queries, device)
+            for key in ivf_cuda.LAUNCHES:
+                ivf_cuda.LAUNCHES[key] = 0
+            truth = _oracle(torch, corpus, corpus[:0], queries, 10, device)
+            recall = _recall(await ann(queries), truth)
+            # a burst: overwrites (the row of key i becomes a new vector) and tombstones
+            rng = np.random.default_rng([SEED, 12])
+            picks = rng.choice(n, N_OVERWRITE + N_TOMBSTONE, replace=False)
+            over, dead = picks[:N_OVERWRITE], picks[N_OVERWRITE:]
+            fresh = make_extra(corpus, N_OVERWRITE, seed=SEED + 8)
+            old = corpus[over].copy()
+            t1 = time.perf_counter()
+            for key, vec in zip(over.tolist(), fresh):
+                await db.insert_values("vectors", (key,), vec)
+            for key in dead.tolist():
+                await db.delete_values("vectors", (key,))
+            while await handle.count() != n - N_TOMBSTONE:
+                if time.perf_counter() > t1 + 120:
+                    raise AssertionError(f"count {await handle.count()} after the burst")
+                await asyncio.sleep(0.02)
+            # the last overwrite may still be behind the count: wait for it
+            while (await ann(fresh[-1:], 1))[0] != [int(over[-1])]:
+                if time.perf_counter() > t1 + 120:
+                    raise AssertionError("the last overwrite never became visible")
+                await asyncio.sleep(0.02)
+            burst_s = time.perf_counter() - t1
+            at_new = await ann(fresh, 1)
+            moved = float(np.mean([a == [k] for a, k in zip(at_new, over.tolist())]))
+            at_old = await ann(old[:256], 1)  # before the burst each key stood first there
+            stale = sum(k in a for a, k in zip(at_old, over[:256].tolist()))
+            at_dead = await ann(corpus[dead[:256]], 10)
+            back = sum(k in a for a, k in zip(at_dead, dead[:256].tolist()))
+            dead_set = set(dead.tolist())
+            any_dead = sum(k in dead_set for a in at_dead + await ann(queries) for k in a)
+            launches = dict(ivf_cuda.LAUNCHES)
+            # and once more on the bank the burst left (tombstones, moved rows)
+            plain_after = _b1_on_index(torch, idx, queries, device)
+        finally:
+            await monitor.stop()
+            await db.close_streams()
+            await engine.close()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    med = float(np.median(rates))
+    log(f"  pipeline MemDb.preload -> MonitorIndexes -> monitor_items -> int8 IvfIndex "
+        f"(reserve_rows {n}; {idx.n_clusters} clusters x bucket {idx.state.bucket}), {n} x {DIM} "
+        f"rows: {med:.0f} vec/s [{min(rates):.0f}-{max(rates):.0f}] over {turns} turns (host "
+        f"clock, index creation to the full count); recall@10 of 256 queries through the "
+        f"handle {recall:.4f}")
+    log(f"  burst of {N_OVERWRITE} overwrites and {N_TOMBSTONE} tombstones applied in "
+        f"{burst_s:.2f} s: count {n - N_TOMBSTONE}; overwritten keys found first at their new "
+        f"row {moved:.4f}, still answering at their old row {stale} of 256; tombstoned keys "
+        f"returned {back + any_dead}; B1/B2 launches of the phase's searches {launches}")
+    for label, (err, agree, n_sep) in (("the filled bank", plain), ("the bank after the burst", plain_after)):
+        log(f"  B1 vs its plain version on {label} (256 queries, {idx.probes} probes, "
+            f"k 10): max|d err| {err:.3e}, ids agree {agree:.4f} on {n_sep} separated")
+        if err > TOL or agree < 1.0:
+            raise AssertionError(f"B1 disagrees with its plain version on {label} of the "
+                                 f"pipeline: err {err}, ids agree {agree}")
+    if recall < MIN_RECALL:
+        raise AssertionError(f"pipeline recall@10 {recall} < {MIN_RECALL}")
+    if moved < 0.99 or stale or back or any_dead:
+        raise AssertionError(f"the burst left a wrong state: moved {moved}, stale {stale}, "
+                             f"tombstoned returned {back + any_dead}")
+    if device == "cuda" and launches["search_fused"] == 0:
+        raise AssertionError(f"the pipeline's searches did not launch B1: {launches}")
+    return {"vec_s": (med, min(rates), max(rates)), "recall": recall, "launches": launches,
+            "err": max(plain[0], plain_after[0])}
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1595,7 +2158,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log(f"phase 6: graph at the recorded geometry, N={N_GRAPH}")
-    graph_geometry(torch)
+    _, graph_idx, graph_queries = graph_geometry(torch)
+    log("phase 11: a snapshot of that graph, saved, loaded and searched")
+    snap = phase_graph_snapshot(torch, graph_idx, graph_queries)
+    del graph_idx
     torch.cuda.empty_cache()
 
     log("phase 7: B1's score modes vs plain PyTorch, and their recall at the bench geometry")
@@ -1623,6 +2189,15 @@ def main() -> int:
             f"{gbs / roof[False]:.3f} of its copy rate ({roof[False]:.1f} GB/s); phase 1's "
             f"synthetic bank {synth[name]:.1f} GB/s")
 
+    log(f"phase 10: text search over HTTP ({N_TEXT_HTTP} documents) and a BM25Index of "
+        f"{N_TEXT} documents")
+    asyncio.run(phase_text_service(torch))
+    phase_text_index(torch)
+
+    log(f"phase 12: the ingest pipeline, {N_PIPELINE} x {DIM} rows through the monitors")
+    pipe = asyncio.run(phase_pipeline(torch))
+    torch.cuda.empty_cache()
+
     # library_ms: no single PyTorch call computes B1 (gather the probed
     # buckets, score, mask, top-k), B2 or B3 (each a gather before the
     # product) or B4 (a product, a min per block and a sum per group)
@@ -1636,6 +2211,8 @@ def main() -> int:
             "source": src + "ivf_scan.cu",
             "replaces": "vector_store_tpu/core/ivf_pallas.py:128",
             "launches": svc["launches"]["search_fused"],
+            "launches_pipeline": pipe["launches"]["search_fused"],
+            "max_abs_err_pipeline": pipe["err"],
             "max_abs_err": report["search_fused"]["err"],
             "ms": timing["search_fused"][0],
             "plain_ms": timing["search_fused"][1],
@@ -1691,6 +2268,7 @@ def main() -> int:
             "launches": gsvc["launches_ingest"] + gsvc["launches_query"],
             "launches_ingest": gsvc["launches_ingest"],
             "launches_query": gsvc["launches_query"],
+            "launches_snapshot_search": snap["launches"],
             "max_abs_err": b3_err,
             "ms": b3["search"][0],
             "plain_ms": b3["search"][1],

@@ -235,3 +235,109 @@ def test_search_takes_b2_when_b1_pool_does_not_fit(monkeypatch):
     np.testing.assert_allclose(d_b2, d_b1, atol=1e-6)
     assert (i_b2[:, 0] == i_b1[:, 0]).all()
     assert _recall(i_b2, i_b1) >= 0.95
+
+
+def _fresh_ivf_module(package: str):
+    """A second copy of `<package>.core.ivf`, executed now: its module-level
+    constants read the environment as it stands, and the copy the other
+    tests use is left alone."""
+    import importlib
+    import importlib.util
+    import sys
+
+    base = importlib.import_module(package + ".core.ivf")
+    spec = importlib.util.spec_from_file_location(package + ".core._ivf_env_copy", base.__file__)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        del sys.modules[spec.name]
+    return mod
+
+
+def test_grow_cap_reads_the_environment_like_jax(monkeypatch):
+    """VST_IVF_GROW_MAX_GB set low: both packages stop doubling the bank
+    and send a hot cluster's overflow to the emptiest clusters, from the
+    same row on (the JAX case: tests/test_ivf.py::
+    test_overflow_places_instead_of_growing)."""
+    monkeypatch.setenv("VST_IVF_GROW_MAX_GB", "1e-9")
+    rng = np.random.default_rng(9)
+    d = 16
+    base = rng.normal(size=(256, d)).astype(np.float32)
+    out = {}
+    for package, params, kw in (
+        ("vector_store_tpu_torch", IndexParams, {"device": "cpu"}),
+        ("vector_store_tpu", JIndexParams, {}),
+    ):
+        mod = _fresh_ivf_module(package)
+        assert mod.GROW_BYTES_MAX == int(1e-9 * (1 << 30))
+        overflow = []  # per call: the rows of the add() chunk that found no room
+        place = mod.IvfIndex._place_overflow
+
+        def recording(ks, poss, unplaced, used, bucket, _place=place, _log=overflow):
+            _log.append(np.flatnonzero(unplaced).tolist())
+            return _place(ks, poss, unplaced, used, bucket)
+
+        mod.IvfIndex._place_overflow = staticmethod(recording)
+        idx = mod.IvfIndex(
+            params(dimensions=d, space="cosine"),
+            cluster_min=256,
+            initial_capacity=256,
+            reserve_rows=4096,  # no doubling recluster, which would re-home the overflow
+            **kw,
+        )
+        idx.add(base)
+        b0 = idx.state.bucket
+        # every new row wants the same cluster; more than its SPILL choices hold
+        hot = np.tile(base[:1], (b0 * 6, 1)) + 0.001 * np.random.default_rng(10).normal(
+            size=(b0 * 6, d)
+        ).astype(np.float32)
+        idx.add(hot)
+        assert idx.state.bucket == b0 and idx.count() == 256 + b0 * 6
+        _, ids = idx.search(hot[-4:], 1, probes=idx.n_clusters)
+        assert (ids[:, 0] >= 0).all()
+        out[package] = (b0, overflow, len(idx._dirty))
+    assert out["vector_store_tpu_torch"] == out["vector_store_tpu"]
+    assert out["vector_store_tpu"][1] and out["vector_store_tpu"][1][0]
+    # unset, the cap is the JAX package's default in both
+    monkeypatch.delenv("VST_IVF_GROW_MAX_GB")
+    assert _fresh_ivf_module("vector_store_tpu_torch").GROW_BYTES_MAX == jivf.GROW_BYTES_MAX == 4 << 30
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_skewed_ingest_recalls_like_jax(dtype):
+    """The big-bucket case at a small scale: n corpus rows (one recluster),
+    then m near-copies of one row (noise 0.01), which grow its bucket.
+    Against the exact f64 oracle both packages recall the same (within
+    0.02): the f32 banks lose nothing to spill or growth, and an int8 bank
+    cannot rank rows that differ by less than its quantization step, in
+    either package.  So the recall that chip_smoke's big bucket shows is a
+    property of the data and the int8 codes, not of the port."""
+    from vector_store_tpu_torch.probes import data
+
+    n, m = 6000, 1500
+    corpus = data.make_corpus(n, D, 42)
+    skew = corpus[0] + 0.01 * np.random.default_rng([42, 3]).standard_normal((m, D), dtype=np.float32)
+    x = np.concatenate([corpus, skew])
+    q = np.concatenate([corpus[:128], skew[:128]])
+    truth = _oracle(x, np.ones(len(x), bool), q, "cosine", 10)
+    recall = {}
+    for name, mod, params, kw in (
+        ("jax", jivf, JIndexParams, {}),
+        ("torch", tivf, IndexParams, {"device": "cpu"}),
+    ):
+        idx = mod.IvfIndex(params(dimensions=D, space="cosine", dtype=dtype), cluster_min=4000, **kw)
+        idx.add(corpus)
+        b0 = idx.state.bucket
+        idx.add(skew)
+        assert idx.state.bucket > b0 and idx.count() == n + m
+        _, ids = idx.search(q, 10, probes=16)
+        recall[name] = (_recall(ids[:128], truth[:128]), _recall(ids[128:], truth[128:]))
+    for half in (0, 1):
+        assert abs(recall["torch"][half] - recall["jax"][half]) <= 0.02, recall
+    assert recall["torch"][0] >= 0.9
+    if dtype == "float32":
+        assert min(recall["torch"]) >= 0.98, recall
+    else:
+        assert recall["torch"][1] < 0.5 and recall["jax"][1] < 0.5, recall

@@ -1,9 +1,10 @@
 """vector_store_tpu_torch over HTTP, in-process on the CPU device.
 
 The port's server, engine, actor and its graph, exact and IVF indexes
-answer the ANN surface end to end; kind "text", not ported yet, answers
-400 with the kind named; and importing the port leaves jax out of the
-process.
+answer the ANN surface end to end; a kind the port does not serve answers
+400 with the kind named (kind "text" is served: tests/test_torch_text.py
+holds its routes); /swagger-ui answers; and importing the port leaves jax
+out of the process.
 """
 
 import asyncio
@@ -84,15 +85,17 @@ async def test_ivf_int8_round_trip():
 async def test_unported_kinds_answer_400():
     c, engine = await _make_client()
     try:
-        r = await c.put(IX, json={"dimensions": 8, "kind": "text"})
-        assert r.status == 400 and "'text'" in await r.text()
+        r = await c.put(IX, json={"dimensions": 8, "kind": "hnsw"})
+        assert r.status == 400 and "'hnsw'" in await r.text()
         r = await c.put(IX, json={"dimensions": 8, "capacity": 0})
         assert r.status == 400
-        r = await c.put("/api/v1/text-search/articles")
-        assert r.status == 400 and "'text'" in await r.text()
-        r = await c.post("/api/v1/text-search/articles/search", json={"text": "x"})
-        assert r.status == 400
         assert await (await c.get("/api/v1/indexes")).json() == []
+        # kind "text" is ported: the ANN PUT takes it, and the ANN listing
+        # leaves it out
+        r = await c.put(IX, json={"dimensions": 8, "kind": "text"})
+        assert r.status == 200, await r.text()
+        assert await (await c.get("/api/v1/indexes")).json() == []
+        assert await (await c.get("/api/v1/text-search")).json() == ["ks.docs"]
         # auto resolves to ivf at the default 1M capacity
         r = await c.put(IX, json={"dimensions": 8, "kind": "auto"})
         assert r.status == 200
@@ -101,7 +104,23 @@ async def test_unported_kinds_answer_400():
         spec = await r.json()
         put = spec["paths"]["/api/v1/indexes/{keyspace}/{index}"]["put"]
         kinds = put["requestBody"]["content"]["application/json"]["schema"]["properties"]["kind"]
-        assert kinds["enum"] == ["ann", "exact", "ivf", "auto"]
+        assert kinds["enum"] == ["ann", "exact", "ivf", "auto", "text"]
+    finally:
+        await c.close()
+        await engine.close()
+
+
+@pytest.mark.asyncio
+async def test_swagger_ui_is_served():
+    """GET /swagger-ui: an HTML page that points the browser at the spec,
+    as the JAX service's does (vector_store_tpu/api/routes.py:446-447)."""
+    c, engine = await _make_client()
+    try:
+        r = await c.get("/swagger-ui")
+        assert r.status == 200 and r.content_type == "text/html"
+        assert "/api-docs/openapi.json" in await r.text()
+        spec = await (await c.get("/api-docs/openapi.json")).json()
+        assert "/api/v1/text-search/{index}/search" in spec["paths"]
     finally:
         await c.close()
         await engine.close()
@@ -186,7 +205,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, vector_store_tpu_torch, vector_store_tpu_torch.api.server, "
         "vector_store_tpu_torch.core.ivf, vector_store_tpu_torch.core.index, "
-        "vector_store_tpu_torch.core.cluster, vector_store_tpu_torch.kernels.build; "
+        "vector_store_tpu_torch.core.cluster, vector_store_tpu_torch.kernels.build, "
+        "vector_store_tpu_torch.core.persist, vector_store_tpu_torch.text.bm25, "
+        "vector_store_tpu_torch.ingest, vector_store_tpu_torch.ingest.scylla, "
+        "vector_store_tpu_torch.ingest.filesource, vector_store_tpu_torch.__main__; "
         "vector_store_tpu_torch.new_index_factory(device='cpu'); "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )

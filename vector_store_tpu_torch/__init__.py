@@ -1,19 +1,20 @@
-"""vector_store_tpu_torch — the ANN serving paths of vector_store_tpu on
-PyTorch and CUDA: kinds "ann" (the graph, the default), "exact" and "ivf".
+"""vector_store_tpu_torch — vector_store_tpu on PyTorch and CUDA: kinds "ann"
+(the graph, the default), "exact", "ivf" and "text" (BM25), the ingest
+layer (`ingest/`) and the HTTP service.
 
 A second package beside the JAX one.  It imports torch, never jax, and
 nothing of the JAX package: the domain types (`types`), configuration
 (`config`), metrics, atomic snapshot writes and the native JSON scanners
-(`utils/`) are this package's own copies, as are the engine, API, graph
-and IVF layers (tests/test_torch_imports.py pins it).  The kernels are hand-written CUDA for
+(`utils/`) are this package's own copies, as are the engine, API, ingest,
+text, graph and IVF layers (tests/test_torch_imports.py pins it).  The kernels are hand-written CUDA for
 sm_90a (csrc/: the IVF probe scans, the graph gather-score and the
 copy-rate probe), built with nvcc at first use.  `probes/` holds the
 measurement modules run on the card (python -m vector_store_tpu_torch.probes.*).
 
 Public surface (mirrors vector_store_tpu):
     run(addr, factory)           start engine + HTTP server
-    new_index_factory(device=)   factory serving kinds "ann", "exact", "ivf"
-                                 (and "auto")
+    new_index_factory(device=)   factory serving kinds "ann", "exact", "ivf",
+                                 "text" (and "auto")
     wait_for_shutdown()          SIGINT/SIGTERM latch
 """
 
@@ -36,19 +37,22 @@ def new_index_factory(
     max_batch: int = 256, window_s: float = 0.002, device: str = "cuda"
 ):
     """Routing factory with the ported backends on `device`: "ann" (the
-    graph, the default kind), "exact" and "ivf".  kind "auto" resolves to
-    "ivf" at declared capacity >= 200k and to "ann" below."""
+    graph, the default kind), "exact", "ivf" and "text" (BM25).  kind
+    "auto" resolves to "ivf" at declared capacity >= 200k and to "ann"
+    below.  Sharding over several devices (the JAX package's `n_devices`)
+    is not ported."""
     from .engine.ann_index import AnnIndexFactory
     from .engine.factory import RoutingFactory
+    from .engine.text_index import TextIndexFactory
 
-    return RoutingFactory(
-        {
-            kind: AnnIndexFactory(
-                backend=backend, max_batch=max_batch, window_s=window_s, device=device
-            )
-            for kind, backend in (("ann", "graph"), ("exact", "exact"), ("ivf", "ivf"))
-        }
-    )
+    by_kind = {
+        kind: AnnIndexFactory(
+            backend=backend, max_batch=max_batch, window_s=window_s, device=device
+        )
+        for kind, backend in (("ann", "graph"), ("exact", "exact"), ("ivf", "ivf"))
+    }
+    by_kind["text"] = TextIndexFactory(window_s=window_s, device=device)
+    return RoutingFactory(by_kind)
 
 
 async def run(addr: str, index_factory=None):

@@ -1,7 +1,12 @@
 """Service entry point — `python -m vector_store_tpu_torch --device cuda`.
 
 Loads .env, initialises logging, runs engine + HTTP server on the given
-torch device and waits for SIGINT/SIGTERM.
+torch device and waits for SIGINT/SIGTERM.  Optionally starts the
+ingestion monitors against a source (the MemDb demo source with --demo; a
+real CDC source would plug in here).  The demo source holds one table of
+64 seeded 8-d rows and the index `demo.items` over it (the JAX package's
+demo source starts empty), so the monitors have something to create and
+fill: GET /api/v1/indexes lists it and .../demo/items/count reaches 64.
 """
 
 from __future__ import annotations
@@ -15,6 +20,23 @@ from .config import Config, load_dotenv
 from . import new_index_factory, run, wait_for_shutdown
 
 
+DEMO_INDEX, DEMO_ROWS, DEMO_DIMS = "demo.items", 64, 8
+
+
+def demo_source():
+    """A MemDb with one small table and one index over it."""
+    import numpy as np
+
+    from .ingest import MemDb
+
+    db = MemDb()
+    db.add_table("items", ("id",), DEMO_DIMS)
+    rows = np.random.default_rng(0).standard_normal((DEMO_ROWS, DEMO_DIMS), dtype=np.float32)
+    db.preload("items", [(i,) for i in range(DEMO_ROWS)], rows)
+    db.add_index(DEMO_INDEX, "items")
+    return db
+
+
 async def main() -> None:
     load_dotenv()
     cfg = Config()
@@ -22,6 +44,11 @@ async def main() -> None:
     parser.add_argument("--addr", default=cfg.http_addr, help="host:port to bind")
     parser.add_argument(
         "--device", default="cuda", help="torch device holding the indexes"
+    )
+    parser.add_argument(
+        "--demo",
+        action="store_true",
+        help="attach an in-memory demo DB source with the ingestion monitors",
     )
     args = parser.parse_args()
 
@@ -37,10 +64,20 @@ async def main() -> None:
             device=args.device,
         ),
     )
-    print(f"listening on http://{server.addr}", flush=True)
+    print(f"listening on http://{server.addr}  (swagger: /swagger-ui)", flush=True)
+
+    monitor = None
+    if args.demo:
+        from .ingest import MonitorIndexes
+
+        monitor = MonitorIndexes(demo_source(), engine)
+        monitor.spawn()
+
     try:
         await wait_for_shutdown()
     finally:
+        if monitor is not None:
+            await monitor.stop()
         await server.close()
         await engine.close()
 

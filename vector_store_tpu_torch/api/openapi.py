@@ -1,10 +1,13 @@
-"""OpenAPI 3.0 document of the port's ANN surface (the text-search routes
-answer 400 until the text backend is ported)."""
+"""OpenAPI 3.0 document of the port's two surfaces (text search and ANN),
+and the Swagger UI page (counterpart of vector_store_tpu/api/openapi.py).
+
+The UI page loads the swagger-ui assets from a CDN in the client's browser;
+the server fetches nothing, and the JSON spec itself is always available."""
 
 from __future__ import annotations
 
 
-def _index_params() -> list:
+def _path_params(*named) -> list:
     return [
         {
             "name": name,
@@ -13,8 +16,12 @@ def _index_params() -> list:
             "schema": {"type": "string"},
             "description": desc,
         }
-        for name, desc in (("keyspace", "Keyspace"), ("index", "Index name"))
+        for name, desc in named
     ]
+
+
+def _index_params() -> list:
+    return _path_params(("keyspace", "Keyspace"), ("index", "Index name"))
 
 
 def _body(required: list, properties: dict) -> dict:
@@ -33,15 +40,66 @@ _FOUND = {"200": {"description": "ok"}, "404": {"description": "Index not found"
 
 def openapi_spec() -> dict:
     ix = "/api/v1/indexes/{keyspace}/{index}"
+    tx = "/api/v1/text-search/{index}"
     return {
         "openapi": "3.0.3",
         "info": {
             "title": "vector-store-tpu (PyTorch/CUDA port)",
-            "description": "Vector search service (graph, exact and IVF indexes) on a CUDA device",
+            "description": (
+                "Vector search (graph, exact and IVF indexes) and BM25 text "
+                "search service on a CUDA device"
+            ),
             "version": "0.1.0",
         },
-        "tags": [{"name": "indexes", "description": "ANN (vector) index API"}],
+        "tags": [
+            {"name": "text-search", "description": "Full-text index API"},
+            {"name": "indexes", "description": "ANN (vector) index API"},
+        ],
         "paths": {
+            "/api/v1/text-search": {
+                "get": {
+                    "tags": ["text-search"],
+                    "description": "Get list of current indexes",
+                    "responses": {"200": {"description": "List of indexes"}},
+                }
+            },
+            tx: {
+                "put": {
+                    "tags": ["text-search"],
+                    "description": "Create an index",
+                    "parameters": _path_params(("index", "Index to create")),
+                    "responses": {"200": {"description": "An Index created"}},
+                }
+            },
+            tx + "/add": {
+                "post": {
+                    "tags": ["text-search"],
+                    "description": "Add an item to the index",
+                    "parameters": _path_params(("index", "Index to add")),
+                    "requestBody": _body(
+                        ["id", "text"], {"id": {"type": "string"}, "text": {"type": "string"}}
+                    ),
+                    "responses": {
+                        "200": {"description": "Add done"},
+                        "404": {"description": "Index not found"},
+                    },
+                }
+            },
+            tx + "/search": {
+                "post": {
+                    "tags": ["text-search"],
+                    "description": "Search in the index",
+                    "parameters": _path_params(("index", "Index to search")),
+                    "requestBody": _body(
+                        ["text"],
+                        {"text": {"type": "string"}, "limit": {"type": "integer", "default": 1}},
+                    ),
+                    "responses": {
+                        "200": {"description": "Search result"},
+                        "404": {"description": "Index not found"},
+                    },
+                }
+            },
             "/api/v1/indexes": {
                 "get": {
                     "tags": ["indexes"],
@@ -65,7 +123,7 @@ def openapi_spec() -> dict:
                             },
                             "kind": {
                                 "type": "string",
-                                "enum": ["ann", "exact", "ivf", "auto"],
+                                "enum": ["ann", "exact", "ivf", "auto", "text"],
                                 "default": "ann",
                             },
                             "capacity": {
@@ -77,7 +135,7 @@ def openapi_spec() -> dict:
                     ),
                     "responses": {
                         "200": {"description": "Created"},
-                        "400": {"description": "Bad parameters or a kind not yet ported (text)"},
+                        "400": {"description": "Bad parameters or an unknown kind"},
                     },
                 },
                 "get": {
@@ -156,3 +214,24 @@ def openapi_spec() -> dict:
             },
         },
     }
+
+
+def swagger_html() -> str:
+    return """<!DOCTYPE html>
+<html>
+<head>
+  <title>vector-store-tpu (PyTorch/CUDA port) — Swagger UI</title>
+  <link rel="stylesheet"
+        href="https://unpkg.com/swagger-ui-dist@5/swagger-ui.css">
+</head>
+<body>
+<div id="swagger-ui"></div>
+<script src="https://unpkg.com/swagger-ui-dist@5/swagger-ui-bundle.js"></script>
+<script>
+  window.onload = () => {
+    SwaggerUIBundle({url: '/api-docs/openapi.json', dom_id: '#swagger-ui'});
+  };
+</script>
+</body>
+</html>
+"""

@@ -1,6 +1,11 @@
-"""REST routes of the port: the ANN surface over graph, exact and IVF indexes.
+"""REST routes of the port: the text-search surface over BM25 indexes and
+the ANN surface over graph, exact and IVF indexes.
 
 Counterpart of vector_store_tpu/api/routes.py:
+    GET    /api/v1/text-search                   list text indexes
+    PUT    /api/v1/text-search/{index}           create (delete, then add)
+    POST   /api/v1/text-search/{index}/add       {id, text} -> 200 | 404
+    POST   /api/v1/text-search/{index}/search    {text, limit} -> keys | 404 | 500
     GET    /api/v1/indexes                       list ids
     PUT    /api/v1/indexes/{ks}/{idx}            create with params body
     GET    /api/v1/indexes/{ks}/{idx}            kind, params, live count
@@ -11,12 +16,12 @@ Counterpart of vector_store_tpu/api/routes.py:
     POST   /api/v1/indexes/{ks}/{idx}/add        {primary_key, embedding}
     POST   /api/v1/indexes/{ks}/{idx}/remove     {primary_key}
     POST   /api/v1/indexes/{ks}/{idx}/compact    -> {count}
-    GET    /healthz, /metrics, /api-docs/openapi.json
+    GET    /healthz, /metrics, /api-docs/openapi.json, /swagger-ui
 
-Kinds "ann" (the default), "exact", "ivf" and "auto" are served.  A PUT
-for kind "text", and every text-search route, answers 400 naming the kind.
-The PUT body may declare `capacity` (IndexParams.capacity), which sizes
-the index and decides kind "auto".
+Kinds "ann" (the default), "exact", "ivf", "auto" and "text" are served;
+any other kind answers 400 naming it.  The ANN PUT body may declare
+`capacity` (IndexParams.capacity), which sizes the index and decides kind
+"auto".
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from ..utils import native as _native
 
 from ..engine.engine import EngineHandle
 from ..engine.factory import PORTED_KINDS, resolve_kind
-from .openapi import openapi_spec
+from .openapi import openapi_spec, swagger_html
 
 log = logging.getLogger("vst.http")
 
@@ -71,8 +76,8 @@ def _json_error(status: int, text: str = "") -> web.Response:
 def _not_ported(kind: str) -> web.Response:
     return _json_error(
         400,
-        f"index kind {kind!r} is not yet ported to vector_store_tpu_torch "
-        f"(ported: {', '.join(PORTED_KINDS)})",
+        f"index kind {kind!r} is not served by vector_store_tpu_torch "
+        f"(served: {', '.join(PORTED_KINDS)})",
     )
 
 
@@ -93,19 +98,67 @@ async def _get_index(request: web.Request, index_id: IndexId):
 
 
 def _index_id(request: web.Request) -> IndexId:
-    return IndexId.from_parts(request.match_info["keyspace"], request.match_info["index"])
+    if "keyspace" in request.match_info:
+        return IndexId.from_parts(request.match_info["keyspace"], request.match_info["index"])
+    return IndexId(request.match_info["index"])
+
+
+async def _index_ids(engine: EngineHandle, text: bool) -> list[str]:
+    """Ids of the text indexes, or of all the others."""
+    ids = []
+    for index_id in await engine.get_index_ids():
+        handle = await engine.get_index(index_id)
+        if handle is not None and (handle.metadata.kind == "text") == text:
+            ids.append(index_id.value)
+    return ids
 
 
 # --------------------------------------------------------------------------
-# text-search surface: not ported
+# text-search surface
 
 
 async def get_text_indexes(request: web.Request) -> web.Response:
-    return web.json_response([])
+    return web.json_response(await _index_ids(request.app["engine"], text=True))
 
 
-async def text_not_ported(request: web.Request) -> web.Response:
-    return _not_ported("text")
+async def put_text_index(request: web.Request) -> web.Response:
+    """Create an index, with recreate semantics: delete, then add
+    (httproutes.rs:76-79)."""
+    engine: EngineHandle = request.app["engine"]
+    index_id = _index_id(request)
+    await engine.del_index(index_id)
+    await engine.add_index(IndexMetadata(index_id=index_id, kind="text"))
+    return web.Response(status=200)
+
+
+async def post_text_add(request: web.Request) -> web.Response:
+    index = await _get_index(request, _index_id(request))
+    if index is None:
+        return _json_error(404)
+    body = await request.json()
+    try:
+        await index.add((body["id"],), body["text"])
+    except Exception as exc:  # noqa: BLE001 -- e.g. handle closed by a racing PUT
+        return _json_error(500, f"index.add request error: {exc}")
+    return web.Response(status=200)
+
+
+async def post_text_search(request: web.Request) -> web.Response:
+    index = await _get_index(request, _index_id(request))
+    if index is None:
+        return _json_error(404)
+    body = await request.json()
+    limit = Limit(int(body.get("limit", 1)))
+    try:
+        keys = await _bounded(index.search(body["text"], limit))
+    except _DeadlineExceeded:
+        return _json_error(504, "search deadline exceeded")
+    except Exception as exc:  # noqa: BLE001 -- 500 with the error text
+        msg = f"index.search request error: {exc}"
+        log.debug("post_text_search: %s", msg)
+        return _json_error(500, msg)
+    # the live system's keys are plain strings (lib.rs:63): unwrap 1-tuples
+    return web.json_response([k[0] if len(k) == 1 else list(k) for k in keys])
 
 
 # --------------------------------------------------------------------------
@@ -113,8 +166,7 @@ async def text_not_ported(request: web.Request) -> web.Response:
 
 
 async def get_ann_indexes(request: web.Request) -> web.Response:
-    engine: EngineHandle = request.app["engine"]
-    return web.json_response([i.value for i in await engine.get_index_ids()])
+    return web.json_response(await _index_ids(request.app["engine"], text=False))
 
 
 async def put_ann_index(request: web.Request) -> web.Response:
@@ -153,7 +205,7 @@ async def get_ann_index_info(request: web.Request) -> web.Response:
     if index is None:
         return _json_error(404)
     meta = index.metadata
-    params = meta.params
+    params = meta.params  # None for a text index
     return web.json_response(
         {
             "id": _index_id(request).value,
@@ -166,7 +218,9 @@ async def get_ann_index_info(request: web.Request) -> web.Response:
                 "expansion_search": params.expansion_search,
                 "space": params.space,
                 "dtype": params.dtype,
-            },
+            }
+            if params is not None
+            else None,
             "count": await index.count(),
         }
     )
@@ -264,8 +318,9 @@ async def post_ann_add(request: web.Request) -> web.Response:
         key = _primary_key(body["primary_key"], index)
         # AddOrReplace is fire-and-forget: reject a dims mismatch here,
         # while the client is still listening
-        dims = index.metadata.params.dimensions
-        if embedding.shape != (dims,):
+        params = index.metadata.params
+        if params is not None and embedding.shape != (params.dimensions,):
+            dims = params.dimensions
             raise ValueError(
                 f"expected embedding of {dims} dimensions, got shape {embedding.shape}"
             )
@@ -314,6 +369,10 @@ async def get_metrics(request: web.Request) -> web.Response:
 
 async def get_openapi(request: web.Request) -> web.Response:
     return web.json_response(openapi_spec())
+
+
+async def get_swagger(request: web.Request) -> web.Response:
+    return web.Response(text=swagger_html(), content_type="text/html")
 
 
 @web.middleware
@@ -370,9 +429,9 @@ def build_app(engine: EngineHandle) -> web.Application:
     app.add_routes(
         [
             web.get("/api/v1/text-search", get_text_indexes),
-            web.put("/api/v1/text-search/{index}", text_not_ported),
-            web.post("/api/v1/text-search/{index}/add", text_not_ported),
-            web.post("/api/v1/text-search/{index}/search", text_not_ported),
+            web.put("/api/v1/text-search/{index}", put_text_index),
+            web.post("/api/v1/text-search/{index}/add", post_text_add),
+            web.post("/api/v1/text-search/{index}/search", post_text_search),
             web.get("/api/v1/indexes", get_ann_indexes),
             web.put(ix, put_ann_index),
             web.get(ix, get_ann_index_info),
@@ -385,6 +444,7 @@ def build_app(engine: EngineHandle) -> web.Application:
             web.get("/healthz", healthz),
             web.get("/metrics", get_metrics),
             web.get("/api-docs/openapi.json", get_openapi),
+            web.get("/swagger-ui", get_swagger),
         ]
     )
     return app

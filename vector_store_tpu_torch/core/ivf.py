@@ -63,7 +63,8 @@ PROBE_DEFAULT = 16
 FUSED_MAX_K = 32
 # Past this bank size, cluster overflow goes to the least-filled clusters
 # (marked dirty for the incremental compact) instead of doubling the bank.
-GROW_BYTES_MAX = 4 << 30
+# VST_IVF_GROW_MAX_GB sets it, as in the JAX package (default 4).
+GROW_BYTES_MAX = int(float(os.environ.get("VST_IVF_GROW_MAX_GB", "4")) * (1 << 30))
 # Rows per bucket target (see the JAX package for the geometry trade).
 ROWS_PER_BUCKET = int(os.environ.get("VST_IVF_ROWS_PER_BUCKET", "170"))
 # k-means: assignment chunk, Lloyd sample cap and iterations

@@ -23,12 +23,12 @@ class IndexFactory(Protocol):
 
 # kind="auto" crossover: below this declared capacity the graph backend's
 # sub-linear traversal wins on latency-sensitive small collections; at and
-# above it the IVF bucketed scan dominates on QPS (the TPU-measured curve
-# in ARCHITECTURE.md "Backend crossover"; not re-measured on the port)
+# above it the IVF bucketed scan dominates on QPS (the JAX package's
+# crossover, ARCHITECTURE.md "Backend crossover"; not re-measured on the port)
 AUTO_IVF_MIN_CAPACITY = 200_000
 
-# Index kinds this package serves; "text" is still to port.
-PORTED_KINDS = ("ann", "exact", "ivf")
+# Index kinds this package serves.
+PORTED_KINDS = ("ann", "exact", "ivf", "text")
 
 
 def resolve_kind(kind: str, params) -> str:

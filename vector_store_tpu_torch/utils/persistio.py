@@ -4,7 +4,7 @@ vector_store_tpu/utils/persistio.py).
 A snapshot interrupted mid-write (process kill, ENOSPC) must not leave a
 truncated ``.npz`` at the target path: the next restore sees the file
 exists, `np.load` raises `BadZipFile`, and the checkpoint is worse than
-absent.  `atomic_savez` writes to a sibling temp path and `os.replace`s
+absent.  Both helpers write to a sibling temp path and `os.replace`
 into place, so the target is always either the old snapshot or the new
 one.  (The reference has no persistence at all — SURVEY §5 — so this is
 a property of our extension, not a parity behaviour.)
@@ -68,3 +68,8 @@ def _atomic(savefn, path: str, **arrays) -> None:
 def atomic_savez(path: str, **arrays) -> None:
     """`np.savez` with write-to-temp + rename-into-place semantics."""
     _atomic(np.savez, path, **arrays)
+
+
+def atomic_savez_compressed(path: str, **arrays) -> None:
+    """`np.savez_compressed`, atomic the same way."""
+    _atomic(np.savez_compressed, path, **arrays)
