@@ -75,8 +75,9 @@ parallel), then:
   9. holds the copy-rate probe B4 against its plain version on a small
      bank, measures its GB/s over a >= 1 GiB bank at blocks of 128, 384,
      768 and 1,536 rows, score on and off, and prints B1's and B2's GB/s
-     of rows read on the bench-geometry index (phase 7) as a share of B4's
-     score-on rate and of its copy rate at 128 rows;
+     on the bench-geometry index (phase 7), of the bytes each must move
+     once (every distinct probed bucket once), as a share of B4's copy rate
+     at 128 rows; a share over 1 fails the phase;
  10. text search: (a) over HTTP on the card, a text index takes 2,000
      documents (zipf over 20,000 words, 24 words each) and answers plain,
      +/- operator, phrase and prefix queries, each held against a numpy
@@ -100,6 +101,24 @@ parallel), then:
      against its plain version on that index's bank (256 queries, its
      probes, k 10) before the searches and after the burst, and its launch
      count is taken over the phase's searches, from 0 after the fill.
+
+ 13. the sharded backends as four logical shards on the one card (a mesh
+     that names cuda:0 four times): kind "ivf" with n_devices=4 over HTTP
+     on the rows of phase 2 (recall@10 >= 0.90 and >= phase 3's minus 0.05;
+     B1 launched once a chunk on every shard, and held against its plain
+     version on one shard's bank; keys back from gids; limit 50 through
+     B2), the two-stage scan on those banks (recall >= 0.85 and >= the
+     single-stage's minus 0.10; B2 packed on every shard), a snapshot saved,
+     loaded onto the same mesh and searched (the same ids; a mesh of two is
+     refused); ingest vec/s and batch QPS of a 4-shard index beside a
+     1-shard index of the same rows, in turns, and the merge's share of a
+     chunk's device time; one first clustering of 1,000,000 rows through the
+     host with the threshold forced, its bank equal tensor for tensor to
+     the device permute of the same plan; kind "ann" with n_devices=4 over
+     HTTP (131,072 + 256 rows, bf16: recall@10 >= 0.90 against the exact
+     f32 oracle, B3 on every shard, 1,000 removes, a compaction whose gid
+     remap the keymap follows); a ShardedBM25Index of phase 10's 100,000
+     documents against the single index and the oracle.
 
 Any failed phase raises and the exit code is non-zero.  The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' record, each
@@ -506,13 +525,14 @@ def phase_kernels(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
     }
     for name, (kern, plain) in runs.items():
         ms, plain_ms = _turns_ms(torch, kern, plain, 50, 3)
-        gbs = rows_read * D / (ms * 1e-3) / 1e9
         nbytes, ops = b1_work(torch, rid, nsb, cids, D, 1, 10)
+        gbs = nbytes / (ms * 1e-3) / 1e9
         bound, by = _bound(nbytes, ops, MODE_UNITS["f32"])
         timing[name] = (ms, plain_ms, gbs, bound, by)
         log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"({plain_ms / ms:.1f}x; {rows_read} live int8 rows read, {gbs:.1f} GB/s; "
-            f"Q={Q} p={p} B={B} D={D}); bound {bound:.4f} ms ({by}), share {bound / ms:.3f}")
+            f"({plain_ms / ms:.1f}x; {rows_read} live int8 rows probed, {gbs:.1f} GB/s of the "
+            f"bytes it must move once; Q={Q} p={p} B={B} D={D}); bound {bound:.4f} ms ({by}), "
+            f"share {bound / ms:.3f}")
     timing["pool_scan"] = b2_timing(torch, "phase 1", banks, rid, nsb, q, cids)
     del banks
     torch.cuda.empty_cache()
@@ -540,16 +560,14 @@ def launch_discipline(torch, label, call, want: int) -> int:
 def b2_timing(torch, label, banks, rid, nsb, q, cids) -> dict:
     """B2 at one shape, cosine, cold L2, in turns: on each bank given and,
     for int8, its packed int4 derivative; each beside its plain version and
-    its bound.  Returns {bank: (ms, plain_ms, GB/s of live rows, bound_ms,
-    bound_by)}."""
+    its bound.  Returns {bank: (ms, plain_ms, GB/s, bound_ms, bound_by)},
+    GB/s of the bytes the call must move once (b1_work: each distinct
+    probed bucket once, the pool written once)."""
     from vector_store_tpu_torch.core import ivf_cuda as ic
     from vector_store_tpu_torch.core.quantize import pack_int4_from_int8
 
-    from vector_store_tpu_torch.core.topk import SENTINEL
-
     out = {}
     Q, p = cids.shape
-    rows_read = int((rid != SENTINEL).sum(dim=1)[cids.long()].sum())
     for dt, (vec, scl) in banks.items():
         variants = [(dt, vec, False)]
         if dt == "int8":
@@ -564,11 +582,11 @@ def b2_timing(torch, label, banks, rid, nsb, q, cids) -> dict:
             nbytes, ops = b1_work(torch, rid, nsb, cids, D, elem, 10, pool_out=True)
             bound, by = _bound(nbytes, ops, B2_UNITS[name])
             ms = t["kernel"][0]
-            gbs = rows_read * D * elem / (ms * 1e-3) / 1e9
+            gbs = nbytes / (ms * 1e-3) / 1e9
             out[name] = (ms, plain[0], gbs, bound, by)
             log(f"  B2 {label} {name:11s} cosine, cold L2: kernel {_fmt(t['kernel'])}, "
                 f"plain {plain[0]:.4f} ms; bound {bound:.4f} ms ({by}), share "
-                f"{bound / ms:.3f}; {gbs:.1f} GB/s of live rows; Q={Q} p={p}")
+                f"{bound / ms:.3f}; {gbs:.1f} GB/s of bytes moved once; Q={Q} p={p}")
     return out
 
 
@@ -879,6 +897,7 @@ async def phase_service(torch, n, device="cuda"):
         await server.close()
         await engine.close()
     out["bench_geometry"], geo_idx, geo_truth = reference_geometry(torch, corpus, queries, device)
+    out["data"] = (corpus, extra, queries, truth)  # phase 13 serves the same rows sharded
     return out, (geo_idx, queries, geo_truth)
 
 
@@ -1334,7 +1353,7 @@ def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
     from vector_store_tpu_torch.core import ivf_cuda as ic
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
-    rid, nsb, q, cids, rows_read = _scan_case(torch, gen, Q, p, B, D, K, device)
+    rid, nsb, q, cids, _ = _scan_case(torch, gen, Q, p, B, D, K, device)
     vec, scl = _bank(torch, "int8", K, B, D, gen, device)
     report = {}
     for mode in MODES:
@@ -1369,11 +1388,11 @@ def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
             50,
             3,
         )
-        rep["gbs"] = rows_read * D / (rep["ms"] * 1e-3) / 1e9
         nbytes, ops = b1_work(torch, rid, nsb, cids, D, 1, 10)
+        rep["gbs"] = nbytes / (rep["ms"] * 1e-3) / 1e9
         rep["bound_ms"], rep["bound_by"] = _bound(nbytes, ops, MODE_UNITS[mode])
         log(f"  B1 {mode}: kernel {rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  "
-            f"({rep['plain_ms'] / rep['ms']:.1f}x; {rep['gbs']:.1f} GB/s of rows read, "
+            f"({rep['plain_ms'] / rep['ms']:.1f}x; {rep['gbs']:.1f} GB/s of bytes moved once, "
             f"Q={Q} p={p} B={B} D={D}); bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
             f"share {rep['bound_ms'] / rep['ms']:.3f}")
     del vec, scl
@@ -1382,14 +1401,17 @@ def phase_modes(torch, device="cuda", Q=256, p=16, B=640, D=DIM, K=512):
 
 
 def bench_rates(torch, geo, Q=256, p=16):
-    """B1 (f32) and B2 in GB/s of rows read on the bench-geometry index (an
-    int8 bank of over 1 GiB, far past the 50 MB L2) at phase 1's Q and p:
-    the first Q queries routed to their p clusters, cosine, k 10.  Rows read
-    are the live rows of the probed buckets, counted once per probe;
-    `distinct` is the share of them in distinct buckets (the rest may come
-    from L2).  These are the rates held against B4's in phase 9.  Before
-    them, B1 in every mode at this shape and at the bench geometry's own
-    (1,024 queries, probes 2)."""
+    """B1 (f32) and B2 in GB/s on the bench-geometry index (an int8 bank of
+    over 1 GiB, far past the 50 MB L2) at phase 1's Q and p: the first Q
+    queries routed to their p clusters, cosine, k 10.  The bytes are those
+    the call must move once (b1_work, the bound's: each distinct probed
+    bucket's live rows once, since the kernels read a bucket once per tile
+    and not once per probe; queries, cids and outputs once), so a rate
+    cannot pass the card's copy rate.  `distinct` is the share of the
+    probed rows, counted per probe, that lie in distinct buckets.  These
+    are the rates held against B4's in phase 9.  Before them, B1 in every
+    mode at this shape and at the bench geometry's own (1,024 queries,
+    probes 2)."""
     from vector_store_tpu_torch.core import ivf_cuda as ic
 
     idx, queries, _ = geo
@@ -1416,10 +1438,11 @@ def bench_rates(torch, geo, Q=256, p=16):
     }
     for name, fn in runs.items():
         ms = _time_ms(torch, fn, 50)
-        out[name] = (ms, rows_read * DIM / (ms * 1e-3) / 1e9)
+        nbytes, _ = b1_work(torch, rid, nsb, cids, DIM, 1, 10, pool_out=name == "pool_scan")
+        out[name] = (ms, nbytes / (ms * 1e-3) / 1e9)
         log(f"  {name} on the bench-geometry index ({out['bank_gib']:.3f} GiB), Q={Q} p={p}: "
-            f"{ms:.4f} ms, {out[name][1]:.1f} GB/s of rows read ({rows_read} rows, "
-            f"{out['distinct']:.3f} of them in distinct buckets)")
+            f"{ms:.4f} ms, {out[name][1]:.1f} GB/s of the {nbytes / 1e6:.1f} MB it must move once "
+            f"({rows_read} rows probed, {out['distinct']:.3f} of them in distinct buckets)")
     if idx.device.type == "cuda":
         # B2 in turns (cold L2) on this index at this shape and at the
         # bench geometry's own (probes 2), int8 and packed int4 (the
@@ -1973,10 +1996,14 @@ def _b1_on_index(torch, idx, queries, device, k=10):
     """B1 against its plain version on a served IvfIndex's own bank, routed
     as the index routes: (max |d err|, share of ids equal, positions
     compared).  On the CPU (a rehearsal) the wrapper is the plain version."""
+    return _b1_on_state(torch, idx.state, queries, idx.probes, device, k)
+
+
+def _b1_on_state(torch, st, queries, probes, device, k=10):
+    """_b1_on_index on a bare IvfState (one shard's bank of a sharded index)."""
     from vector_store_tpu_torch.core import ivf_cuda as ic
 
-    st = idx.state
-    qf, cids, _ = ic.route(st, torch.as_tensor(queries, device=device), "cosine", idx.probes)
+    qf, cids, _ = ic.route(st, torch.as_tensor(queries, device=device), "cosine", probes)
     rid_masked, nsb = ic.scan_masks(st)
     d_k, r_k = ic.search_fused(st.vectors, st.scales, rid_masked, qf, cids, "cosine", k, nsb)
     d_p, r_p = ic.search_fused_plain(st.vectors, st.scales, rid_masked, qf, cids, "cosine", k + 1, nsb)
@@ -2109,6 +2136,428 @@ async def phase_pipeline(torch, device="cuda", n=N_PIPELINE, turns=PIPELINE_TURN
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# phase 13: the sharded backends, as four logical shards on one card
+
+N_SHARDS = 4
+MIN_RECALL_TWO_STAGE_SHARDED = 0.85
+
+
+def _median_range(vals) -> str:
+    return f"{float(np.median(vals)):.0f} [{min(vals):.0f}-{max(vals):.0f}]"
+
+
+def _zero(counter: dict) -> None:
+    for key in counter:
+        counter[key] = 0
+
+
+async def phase_sharded_ivf(torch, data, single_recall, device="cuda", shards=N_SHARDS):
+    """Kind "ivf" with n_devices=4 over HTTP on a mesh that names one device
+    four times: the rows of phases 2-3 again, recall@10 against the same
+    exact f32 oracle, B1 on every shard and against its plain version on
+    one shard's bank, keys back from gids, the two-stage scan, a snapshot."""
+    import tempfile
+
+    import aiohttp
+
+    from vector_store_tpu_torch import IndexId, new_index_factory, run
+    from vector_store_tpu_torch.core import ivf_cuda
+    from vector_store_tpu_torch.core.ivf import QCHUNK
+    from vector_store_tpu_torch.shard.sharded_ivf import ShardedIvfIndex
+
+    corpus, extra, queries, truth = data
+    n = len(corpus)
+    mesh = [torch.device(device)] * shards
+    server, engine = await run(
+        "127.0.0.1:0", new_index_factory(device=mesh, n_devices=shards))
+    out = {}
+    try:
+        base = f"http://{server.addr}/api/v1/indexes/{KS}/sharded"
+        async with aiohttp.ClientSession() as http:
+            await _put_index(http, base, {"dimensions": DIM, "space": "cosine", "dtype": "int8",
+                                          "kind": "ivf"})
+            handle = await engine.get_index(IndexId.from_parts(KS, "sharded"))
+            idx = handle.backend.index
+            if not isinstance(idx, ShardedIvfIndex) or idx.n_shards != shards:
+                raise AssertionError(f"PUT made {type(idx).__name__}")
+            # main path from here: the launches of this run only
+            _zero(ivf_cuda.LAUNCHES)
+            ingest_s = await _ingest(http, base, handle, corpus, extra)
+            want = n + len(extra)
+            fill = [b.n_live for b in idx._books]
+            log(f"  sharded IVF over HTTP: {want} rows in {ingest_s:.2f} s "
+                f"({want / ingest_s:.0f} vec/s through the handle); {shards} shards of "
+                f"{idx.n_clusters} clusters x bucket {idx.bucket}, rows per shard {fill}")
+            if max(fill) - min(fill) > 1 or sum(fill) != want:
+                raise AssertionError(f"the deal left the shards unbalanced: {fill}")
+            got = await _http_ann(http, base, queries[:N_HTTP], 10)
+            out["recall_http"] = _recall(got, truth[:N_HTTP])
+            own = await _http_ann(http, base, extra[:64], 1)
+            back = sum(g[:1] == [n + j] for j, g in enumerate(own))
+            big = await _http_ann(http, base, queries[:8], 50)
+            if any(len(b) != 50 for b in big):
+                raise AssertionError("limit=50 queries returned short lists")
+            out["launches"] = dict(ivf_cuda.LAUNCHES)
+            log(f"  HTTP ann limit=10 x {N_HTTP}: recall@10 {out['recall_http']:.4f} against the "
+                f"exact f32 oracle (one card, phases 2-3: {single_recall:.4f}); {back}/64 rows "
+                f"posted through /add come back first under their own key; limit=50 x 8 ok; "
+                f"launches {out['launches']}")
+            if out["recall_http"] < max(MIN_RECALL, single_recall - 0.05):
+                raise AssertionError(f"sharded recall {out['recall_http']} vs {single_recall}")
+            if back != 64:
+                raise AssertionError(f"only {back}/64 gids decode to the keys that were upserted")
+
+            if device == "cuda":
+                # one search of 2,048 queries: every shard launches B1 once a chunk
+                chunks = -(-len(queries) // QCHUNK)
+                _zero(ivf_cuda.LAUNCHES)
+                _, ids = idx.search(queries, 10)
+                b1 = ivf_cuda.LAUNCHES["search_fused"]
+                _zero(ivf_cuda.LAUNCHES)
+                idx.search(queries[:QCHUNK], 50)
+                b2 = ivf_cuda.LAUNCHES["pool_scan"]
+                log(f"  one search of {len(queries)} queries launched B1 {b1} times = {shards} "
+                    f"shards x {chunks} chunks; one of {QCHUNK} at k 50 launched B2 {b2} times")
+                if b1 != shards * chunks or b2 != shards:
+                    raise AssertionError(f"not every shard launched: B1 {b1}, B2 {b2}")
+                out["launches"]["search_fused"] += b1
+                out["launches"]["pool_scan"] += b2
+            _, ids = idx.search(queries, 10)
+            out["recall_batch"] = _recall([r.tolist() for r in ids], truth)
+            # gids decode: a gid's shard and local rowid name the bank slot it was read from
+            shard, rowid = idx.decode(int(ids[0, 0]))
+            k_, p_ = idx._books[shard].loc[rowid]
+            if int(idx.states[shard].rowid[k_, p_]) != rowid:
+                raise AssertionError("a returned gid does not decode to its shard's row")
+
+            # B1 against its plain version on one shard's bank, at this path's shape
+            err, agree, n_sep = _b1_on_state(torch, idx.states[1], queries[:256], idx.probes, device)
+            out["err"] = err
+            log(f"  B1 vs plain on shard 1's bank ({idx.n_clusters} x {idx.bucket} int8, 256 "
+                f"queries, p {idx.probes}, k 10): max|d err| {err:.3e}, ids agree {agree:.4f} on "
+                f"{n_sep} separated")
+            if err > TOL or agree < 1.0:
+                raise AssertionError(f"B1 disagrees with plain on a shard's bank: {err}, {agree}")
+
+            # the two-stage scan on the same banks
+            idx.coarse = True  # nothing mutates the index while it is switched
+            _zero(ivf_cuda.LAUNCHES)
+            _, ids2 = idx.search(queries, 10)
+            out["launches_two_stage"] = dict(ivf_cuda.LAUNCHES)
+            out["recall_two_stage"] = _recall([r.tolist() for r in ids2], truth)
+            log(f"  two-stage (coarse int4 + int8 rescore) on the sharded banks: recall@10 "
+                f"{out['recall_two_stage']:.4f} vs single-stage {out['recall_batch']:.4f}; "
+                f"launches {out['launches_two_stage']}")
+            if out["recall_two_stage"] < max(MIN_RECALL_TWO_STAGE_SHARDED,
+                                             out["recall_batch"] - 0.10):
+                raise AssertionError(f"sharded two-stage recall {out['recall_two_stage']}")
+            if device == "cuda" and out["launches_two_stage"] != {
+                    "search_fused": 0, "pool_scan": shards * -(-len(queries) // QCHUNK)}:
+                raise AssertionError(f"two-stage launches {out['launches_two_stage']}")
+            idx.coarse = False
+
+            # snapshot: saved, loaded onto the same mesh, searched
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "sharded.npz")
+                t = time.perf_counter()
+                idx.save(path)
+                save_s = time.perf_counter() - t
+                size = os.path.getsize(path)
+                t = time.perf_counter()
+                back_idx = ShardedIvfIndex.load(path, mesh=mesh)
+                _sync(torch, device)
+                load_s = time.perf_counter() - t
+                _, a = idx.search(queries, 10)
+                _, b = back_idx.search(queries, 10)
+                if not np.array_equal(a, b) or back_idx.count() != idx.count():
+                    raise AssertionError("the loaded sharded index answers differently")
+                try:
+                    ShardedIvfIndex.load(path, mesh=mesh[:2])
+                except ValueError as exc:
+                    refused = str(exc)
+                else:
+                    raise AssertionError("a snapshot of 4 shards loaded onto 2")
+                del back_idx
+            log(f"  snapshot: save {save_s:.2f} s, load {load_s:.2f} s ({size / 2**30:.3f} GiB); "
+                f"the loaded index returns the same ids; on a mesh of 2: {refused!r}")
+    finally:
+        await server.close()
+        await engine.close()
+    return out
+
+
+def sharded_ivf_turns(torch, data, device="cuda", shards=N_SHARDS):
+    """Ingest vec/s (one add of all rows into an index sized for them, so a
+    single recluster) and batch QPS (2,048 queries in one call) of the
+    4-shard index beside a 1-shard index of the same rows, in turns; then
+    the merge's share of one chunk's device time."""
+    from vector_store_tpu_torch import IndexParams
+    from vector_store_tpu_torch.core import ivf_cuda as ic
+    from vector_store_tpu_torch.shard.mesh import gid_merge
+    from vector_store_tpu_torch.shard.sharded_ivf import ShardedIvfIndex
+
+    corpus, _, queries, truth = data
+    params = IndexParams(dimensions=DIM, space="cosine", dtype="int8")
+    dev = torch.device(device)
+    ingest = {1: [], shards: []}
+    kept = {}
+    for s in (shards, 1, 1, shards):
+        kept.pop(s, None)
+        torch.cuda.empty_cache()
+        idx = ShardedIvfIndex(params, mesh=[dev] * s, initial_capacity=len(corpus))
+        t = time.perf_counter()
+        idx.add(corpus)
+        torch.cuda.synchronize()
+        ingest[s].append(len(corpus) / (time.perf_counter() - t))
+        kept[s] = idx
+    qps = {1: [], shards: []}
+    recall = {}
+    for idx in kept.values():
+        idx.search(queries, 10)  # warm: the allocator has seen every shape
+    for s in (shards, 1, 1, shards, shards, 1, 1, shards):
+        idx = kept[s]
+        t = time.perf_counter()
+        _, ids = idx.search(queries, 10)
+        qps[s].append(len(queries) / (time.perf_counter() - t))
+        recall[s] = _recall([r.tolist() for r in ids], truth)
+    for s in (shards, 1):
+        log(f"  {s}-shard index on one card, {len(corpus)} rows ({kept[s].n_clusters} clusters x "
+            f"bucket {kept[s].bucket} a shard): ingest {_median_range(ingest[s])} vec/s over "
+            f"{len(ingest[s])} turns; search of {len(queries)} queries "
+            f"{_median_range(qps[s])} QPS over {len(qps[s])} turns; recall@10 {recall[s]:.4f}")
+
+    # the merge's share: one chunk of 256 queries, device time by events
+    idx = kept[shards]
+    masks = [ic.scan_masks(st) for st in idx.states]
+    q = torch.as_tensor(queries[:256], device=dev)
+
+    def scans():
+        return [ic.search_clustered_fused(st, q, "cosine", 10, idx.probes, m)
+                for st, m in zip(idx.states, masks)]
+
+    parts = scans()
+    t = _turns(torch, {"scan + merge": lambda: gid_merge(scans(), 10),
+                       "merge": lambda: gid_merge(parts, 10)}, 20, cold=False)
+    share = t["merge"][0] / t["scan + merge"][0]
+    log(f"  one chunk of 256 queries on the {shards}-shard index: route + B1 on every shard + "
+        f"merge {_fmt(t['scan + merge'])}, the merge alone {_fmt(t['merge'])}: {share:.3f} of it")
+    return {"ingest": ingest, "qps": qps, "recall": recall, "merge_share": share,
+            "merge_ms": t["merge"][0], "chunk_ms": t["scan + merge"][0]}
+
+
+async def phase_sharded_graph(torch, n=N_GRAPH, device="cuda", n_remove=N_REMOVE,
+                              shards=N_SHARDS):
+    """Kind "ann" with n_devices=4 over HTTP: ingest, queries against the
+    exact f32 oracle, B3's launches per shard, removes, a compaction whose
+    gid remap the keymap follows."""
+    import aiohttp
+
+    from vector_store_tpu_torch import IndexId, new_index_factory, run
+    from vector_store_tpu_torch.core import graph_cuda
+    from vector_store_tpu_torch.shard.sharded_index import ShardedSlotIndex
+
+    corpus = make_corpus(n, DIM)
+    extra = make_extra(corpus, EXTRA_ROWS)
+    queries = make_queries(corpus, N_HTTP)
+    # the oracle's top 40, so that the top 10 of the rows left after the
+    # removes can be read from it
+    deep = _oracle(torch, corpus, extra, queries, 40, device)
+    mesh = [torch.device(device)] * shards
+    server, engine = await run(
+        "127.0.0.1:0", new_index_factory(device=mesh, n_devices=shards))
+    out = {}
+    try:
+        base = f"http://{server.addr}/api/v1/indexes/{KS}/shgraph"
+        async with aiohttp.ClientSession() as http:
+            await _put_index(http, base, {"dimensions": DIM, "space": "cosine", "capacity": n})
+            handle = await engine.get_index(IndexId.from_parts(KS, "shgraph"))
+            backend = handle.backend
+            idx = backend.index
+            if not isinstance(idx, ShardedSlotIndex) or idx.cfg.dtype != "bfloat16":
+                raise AssertionError(f"PUT made {type(idx).__name__} {idx.cfg.dtype}")
+            _zero(graph_cuda.LAUNCHES)
+            ingest_s = await _ingest(http, base, handle, corpus, extra)
+            want = n + len(extra)
+            out["launches_ingest"] = graph_cuda.LAUNCHES["expand_score"]
+            log(f"  sharded graph over HTTP: {want} rows in {ingest_s:.2f} s "
+                f"({want / ingest_s:.0f} vec/s); {shards} shards of capacity {idx.capacity}, rows "
+                f"{idx._sizes.tolist()}; B3 launches {out['launches_ingest']}")
+            _zero(graph_cuda.LAUNCHES)
+            got = await _http_ann(http, base, queries, 10)
+            out["launches_query"] = graph_cuda.LAUNCHES["expand_score"]
+            out["recall_http"] = _recall(got, deep[:, :10])
+            _zero(graph_cuda.LAUNCHES)
+            idx.search(queries[:256], 10)
+            one = graph_cuda.LAUNCHES["expand_score"]
+            log(f"  HTTP ann limit=10 x {len(queries)}: recall@10 {out['recall_http']:.4f} against "
+                f"the exact f32 oracle (bf16 banks); B3 launches {out['launches_query']}; one "
+                f"search of 256 queries launches B3 {one} times = {shards} shards x "
+                f"{idx.cfg.search_iters} rounds")
+            if device == "cuda" and (one != shards * idx.cfg.search_iters
+                                     or out["launches_ingest"] == 0
+                                     or out["launches_query"] % shards):
+                raise AssertionError(f"B3 did not launch on every shard: {one}, {out}")
+            out["launches_query"] += one
+
+            removed = set(range(0, n, max(n // n_remove, 1))[:n_remove])
+            left = [[k for k in row.tolist() if k not in removed][:10] for row in deep]
+            sem = asyncio.Semaphore(IN_FLIGHT)
+
+            async def remove(key):
+                async with sem:
+                    async with http.post(base + "/remove", json={"primary_key": [key]}) as r:
+                        if r.status != 200:
+                            raise AssertionError(f"POST remove: {r.status} {await r.text()}")
+
+            await asyncio.gather(*(remove(k) for k in removed))
+            await _wait_count(http, base, want - len(removed))
+            for stage in ("removed", "compacted"):
+                if stage == "compacted":
+                    before = backend.keymap
+                    t = time.perf_counter()
+                    async with http.post(base + "/compact") as r:
+                        count = (await r.json())["count"]
+                    out["compact_s"] = time.perf_counter() - t
+                    if count != want - len(removed) or int(idx._frontiers.sum()) != count:
+                        raise AssertionError(f"compact: count {count}, rows {idx._frontiers}")
+                    if backend.keymap is before:
+                        raise AssertionError("the compaction did not swap the keymap")
+                got = await _http_ann(http, base, queries, 10)
+                back = sum(k in removed for g in got for k in g)
+                out[f"recall_{stage}"] = _recall(got, left)
+                log(f"  after {len(removed)} removes{' + compact' if stage == 'compacted' else ''}"
+                    f": recall@10 {out[f'recall_{stage}']:.4f}; removed keys returned: {back}")
+                if back:
+                    raise AssertionError(f"{back} removed keys came back")
+            log(f"  the compaction (rebuild of {count} rows, gid remap into a new keymap) took "
+                f"{out['compact_s']:.2f} s")
+            for key in ("recall_http", "recall_removed", "recall_compacted"):
+                if out[key] < MIN_RECALL:
+                    raise AssertionError(f"sharded graph {key} {out[key]} < {MIN_RECALL}")
+    finally:
+        await server.close()
+        await engine.close()
+    return out
+
+
+def phase_sharded_text(torch, device="cuda", n=N_TEXT, shards=N_SHARDS):
+    """A ShardedBM25Index of phase 10's 100,000 documents beside a BM25Index
+    of the same: the top-10 of 32 queries equal to the single index and to
+    the oracle wherever scores are distinct, scores within TEXT_TOL."""
+    from vector_store_tpu_torch.text import bm25
+    from vector_store_tpu_torch.text.sharded_bm25 import ShardedBM25Index
+
+    rows, rng, p = _zipf_rows(n)
+    table = np.array([_term_id(f"w{w}") for w in range(TEXT_VOCAB)], dtype=np.int64)
+    texts = [" ".join(f"w{t}" for t in row) for row in rows]
+    q_rows = [rng.choice(TEXT_VOCAB, size=3, p=p) for _ in range(32)]
+    q_batch = [" ".join(f"w{t}" for t in row) for row in q_rows]
+    single = bm25.BM25Index(initial_capacity=n, device=device)
+    sharded = ShardedBM25Index(initial_capacity=n, mesh=[torch.device(device)] * shards)
+    for text in texts:
+        single.add(text)
+        sharded.add(text)
+    oracle = TextOracle()
+    oracle.put_rows(range(n), rows, table)
+    # the single index answers 11, so that position 9 has a right neighbour
+    a, b = single.search(q_batch, 11), sharded.search(q_batch, 10)
+    compared = same = 0
+    for j, (row, one, many) in enumerate(zip(q_rows, a, b)):
+        spec = {"scored": [int(table[w]) for w in row]}
+        compared += _check_text_answer(f"ShardedBM25Index query {j}", oracle, spec, 10,
+                                       [s for s, _ in many], np.array([v for _, v in many]))
+        s1, s4 = np.array([v for _, v in one]), np.array([v for _, v in many])
+        if len(one[:10]) != len(many) or not np.allclose(s1[:10], s4, rtol=TEXT_TOL, atol=1e-6):
+            raise AssertionError(f"query {j}: sharded scores {s4} vs single {s1}")
+        for pos, ((k1, v1), (k4, _)) in enumerate(zip(one, many)):
+            apart = all(abs(v1 - s1[o]) > TEXT_TOL * v1 for o in (pos - 1, pos + 1)
+                        if 0 <= o < len(s1))
+            if apart and k1 != k4:
+                raise AssertionError(f"query {j} position {pos}: {k4} vs single {k1}")
+        same += [s for s, _ in one[:10]] == [s for s, _ in many]
+    qps = {"single": [], "sharded": []}
+    for name in ("sharded", "single", "single", "sharded"):
+        idx = sharded if name == "sharded" else single
+        t0 = time.perf_counter()
+        for _ in range(3):
+            idx.search(q_batch, 10)
+        qps[name].append(3 * len(q_batch) / (time.perf_counter() - t0))
+    log(f"  ShardedBM25Index, {shards} shards of {sharded._dev_rows} rows, {n} documents: top-10 "
+        f"of 32 queries equal the oracle's ({compared} keys at distinct scores in order, scores "
+        f"within {TEXT_TOL:g}) and the single index's ({same}/32 answers in the same order, the "
+        f"rest differ among equal scores); search() {_median_range(qps['sharded'])} QPS sharded, "
+        f"{_median_range(qps['single'])} single, 2 turns each")
+    if compared < 32:
+        raise AssertionError(f"only {compared} keys stood at distinct scores")
+    return {"qps": qps}
+
+
+def phase_host_recluster(torch, data, device="cuda"):
+    """One recluster of a bank of real size through the host, with the
+    threshold forced: the first clustering of all the rows (a staging bank
+    permuted into the clustered one).  The same permutation also runs on the
+    device from the same old bank, centroids and plan: the two new banks
+    must be equal tensor for tensor, so the index answers the same."""
+    from vector_store_tpu_torch import IndexParams
+    from vector_store_tpu_torch.core import ivf
+
+    corpus, _, queries, truth = data
+    seen = {}
+    real = ivf.permute_via_host
+
+    def both(box, centroids, perm):
+        old = box[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seen["device"] = ivf.permute_build(old, centroids, torch.as_tensor(perm, device=device))
+        torch.cuda.synchronize()
+        seen["device_s"] = time.perf_counter() - t
+        seen["bytes"] = (old.vectors.numel() * old.vectors.element_size(),
+                         seen["device"].vectors.numel() * old.vectors.element_size())
+        del old
+        t = time.perf_counter()
+        new = real(box, centroids, perm)
+        torch.cuda.synchronize()
+        seen["host_s"] = time.perf_counter() - t
+        return new
+
+    idx = ivf.IvfIndex(IndexParams(dimensions=DIM, space="cosine", dtype="int8"),
+                       initial_capacity=len(corpus), device=device)
+    ivf.HOST_PERMUTE_BYTES, ivf.permute_via_host = 0, both
+    try:
+        idx.add(corpus)
+    finally:
+        ivf.HOST_PERMUTE_BYTES, ivf.permute_via_host = None, real
+    if "host_s" not in seen:
+        raise AssertionError("the forced recluster did not go through the host")
+    for f in ivf._FIELDS:
+        if not torch.equal(getattr(idx.state, f), getattr(seen["device"], f)):
+            raise AssertionError(f"host and device permutes differ in {f}")
+    _, via_host = idx.search(queries, 10)
+    idx._state = seen.pop("device")
+    _, on_device = idx.search(queries, 10)
+    if not np.array_equal(via_host, on_device):
+        raise AssertionError("the index answers differently after the host permute")
+    rec = _recall([r.tolist() for r in via_host], truth)
+    old_b, new_b = seen["bytes"]
+    log(f"  recluster through the host, forced: {len(corpus)} rows, old bank {old_b / 2**30:.3f} "
+        f"GiB -> new {new_b / 2**30:.3f} GiB ({idx.n_clusters} x {idx.state.bucket}): "
+        f"{seen['host_s']:.2f} s (down, gather on the host, up) vs {seen['device_s']:.3f} s on the "
+        f"device; the two banks are equal tensor for tensor and 2,048 queries get the same ids; "
+        f"recall@10 {rec:.4f}")
+    # the rule itself, on this card now
+    free, total = torch.cuda.mem_get_info(torch.device(device))
+    log(f"  the rule unforced: {free / 2**30:.1f} of {total / 2**30:.1f} GiB free, so this "
+        f"recluster stays on the device: "
+        f"{not ivf.permute_through_host(torch.device(device), old_b, new_b, new_b // DIM)}")
+    if ivf.permute_through_host(torch.device(device), old_b, new_b, new_b // DIM):
+        raise AssertionError("the rule sends a 1 GiB recluster through the host on an empty card")
+    if ivf.permute_through_host(torch.device(device), old_b, total, total // DIM) is not True:
+        raise AssertionError("the rule keeps a bank as large as the card on the device")
+    return {"host_s": seen["host_s"], "device_s": seen["device_s"]}
+
+
 def main() -> int:
     import torch
 
@@ -2170,7 +2619,8 @@ def main() -> int:
     mode_recall, mode_launches = modes_recall(torch, geo)
     log(f"  f32 recall@10 at the same geometry: {svc['bench_geometry']['recall_p2']:.4f}; stub "
         f"(B1's copy floor) {modes['stub']['ms']:.4f} ms = {modes['stub']['gbs']:.1f} GB/s of "
-        f"rows read vs f32 {timing['search_fused'][0]:.4f} ms = {timing['search_fused'][2]:.1f} GB/s")
+        f"bytes moved once vs f32 {timing['search_fused'][0]:.4f} ms = "
+        f"{timing['search_fused'][2]:.1f} GB/s")
 
     log("phase 8: the two-stage scan and a snapshot round trip on the bench-geometry index")
     phase_two_stage(torch, geo)
@@ -2184,10 +2634,13 @@ def main() -> int:
     synth = {"search_fused": timing["search_fused"][2], "pool_scan": timing["pool_scan"]["int8"][2]}
     for name, label in (("search_fused", "B1"), ("pool_scan", "B2")):
         gbs = rates[name][1]
-        log(f"  {label} rows read on the bench-geometry index {gbs:.1f} GB/s = "
-            f"{gbs / roof[True]:.3f} of B4's score-on rate at B=128 ({roof[True]:.1f} GB/s), "
-            f"{gbs / roof[False]:.3f} of its copy rate ({roof[False]:.1f} GB/s); phase 1's "
-            f"synthetic bank {synth[name]:.1f} GB/s")
+        log(f"  {label} on the bench-geometry index moves the bytes it must move once at "
+            f"{gbs:.1f} GB/s = {gbs / roof[False]:.3f} of B4's copy rate at B=128 "
+            f"({roof[False]:.1f} GB/s; its score-on rate {roof[True]:.1f} GB/s is one warp per "
+            f"row on CUDA cores, not a ceiling for tensor-core scoring); phase 1's synthetic "
+            f"bank {synth[name]:.1f} GB/s = {synth[name] / roof[False]:.3f}")
+        if max(gbs, synth[name]) > roof[False]:
+            raise AssertionError(f"{label} reads faster than the copy rate: a rate is miscounted")
 
     log(f"phase 10: text search over HTTP ({N_TEXT_HTTP} documents) and a BM25Index of "
         f"{N_TEXT} documents")
@@ -2196,6 +2649,22 @@ def main() -> int:
 
     log(f"phase 12: the ingest pipeline, {N_PIPELINE} x {DIM} rows through the monitors")
     pipe = asyncio.run(phase_pipeline(torch))
+    torch.cuda.empty_cache()
+
+    log(f"phase 13: the sharded backends, {N_SHARDS} logical shards on this one card (a mesh "
+        f"that names cuda:0 {N_SHARDS} times: what is checked is the sharded code, and nothing "
+        f"here says how it scales over cards)")
+    data = svc.pop("data")
+    sh_ivf = asyncio.run(phase_sharded_ivf(torch, data, svc["recall_http"]))
+    torch.cuda.empty_cache()
+    sharded_ivf_turns(torch, data)
+    torch.cuda.empty_cache()
+    phase_host_recluster(torch, data)
+    del data
+    torch.cuda.empty_cache()
+    sh_graph = asyncio.run(phase_sharded_graph(torch))
+    torch.cuda.empty_cache()
+    phase_sharded_text(torch)
     torch.cuda.empty_cache()
 
     # library_ms: no single PyTorch call computes B1 (gather the probed
@@ -2212,6 +2681,8 @@ def main() -> int:
             "replaces": "vector_store_tpu/core/ivf_pallas.py:128",
             "launches": svc["launches"]["search_fused"],
             "launches_pipeline": pipe["launches"]["search_fused"],
+            "launches_sharded": sh_ivf["launches"]["search_fused"],
+            "max_abs_err_sharded": sh_ivf["err"],
             "max_abs_err_pipeline": pipe["err"],
             "max_abs_err": report["search_fused"]["err"],
             "ms": timing["search_fused"][0],
@@ -2245,6 +2716,8 @@ def main() -> int:
             "source": src + "ivf_scan.cu",
             "replaces": "vector_store_tpu/core/ivf_pallas.py:252",
             "launches": svc["launches"]["pool_scan"],
+            "launches_sharded": sh_ivf["launches"]["pool_scan"]
+            + sh_ivf["launches_two_stage"]["pool_scan"],
             "max_abs_err": report["pool_scan"]["err"],
             # times: phase 1's shapes, int8, cosine, cold L2 (median of turns)
             "ms": b2[0],
@@ -2269,6 +2742,7 @@ def main() -> int:
             "launches_ingest": gsvc["launches_ingest"],
             "launches_query": gsvc["launches_query"],
             "launches_snapshot_search": snap["launches"],
+            "launches_sharded": sh_graph["launches_ingest"] + sh_graph["launches_query"],
             "max_abs_err": b3_err,
             "ms": b3["search"][0],
             "plain_ms": b3["search"][1],

@@ -341,3 +341,56 @@ def test_skewed_ingest_recalls_like_jax(dtype):
         assert min(recall["torch"]) >= 0.98, recall
     else:
         assert recall["torch"][1] < 0.5 and recall["jax"][1] < 0.5, recall
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_recluster_through_host_equals_on_device(dtype, monkeypatch):
+    """With the host-permute threshold forced low, a recluster pulls the old
+    bank down, frees it, gathers on the host and uploads: the same state,
+    tensor for tensor and mirror for mirror, as the on-device permute of
+    the same rows (adds, removes, the first clustering and a compact)."""
+    x = _clustered(5000, D, seed=11)
+    params = IndexParams(dimensions=D, space="cosine", dtype=dtype)
+    calls = []
+    real = tivf.permute_via_host
+
+    def spy(box, centroids, perm):
+        calls.append(len(box))
+        out = real(box, centroids, perm)
+        assert box == []  # the old bank was dropped before the upload
+        return out
+
+    monkeypatch.setattr(tivf, "permute_via_host", spy)
+    built = []
+    for limit in (None, 0):
+        monkeypatch.setattr(tivf, "HOST_PERMUTE_BYTES", limit)
+        idx = tivf.IvfIndex(params, cluster_min=3000, device="cpu")
+        ids = idx.add(x[:2500])
+        idx.remove(ids[::7])
+        idx.add(x[2500:])  # crosses cluster_min: the first clustering
+        idx.remove(ids[1::11])
+        idx.compact(full=True)  # a second recluster, with tombstones and free slots
+        built.append(idx)
+    on_device, via_host = built
+    assert calls == [1, 1]  # only the forced index went through the host, twice
+    assert via_host._clustered and via_host.count() == on_device.count()
+    for f in tivf._FIELDS:
+        a, b = getattr(on_device.state, f), getattr(via_host.state, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    for m in ("_n_used", "_valid_h", "_rowid_h", "_loc"):
+        np.testing.assert_array_equal(getattr(on_device, m), getattr(via_host, m), err_msg=m)
+    assert on_device._free == via_host._free and on_device._dirty == via_host._dirty
+    q = x[:32] + 0.01
+    (d0, i0), (d1, i1) = on_device.search(q, 10), via_host.search(q, 10)
+    np.testing.assert_array_equal(i0, i1)
+    np.testing.assert_array_equal(d0, d1)
+
+
+def test_host_permute_rule_never_fires_on_the_cpu_unless_forced(monkeypatch):
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(tivf, "HOST_PERMUTE_BYTES", None)
+    assert not tivf.permute_through_host(cpu, 1 << 40, 1 << 40, 1 << 30)
+    monkeypatch.setattr(tivf, "HOST_PERMUTE_BYTES", 1000)
+    assert tivf.permute_through_host(cpu, 600, 600, 10)
+    assert not tivf.permute_through_host(cpu, 400, 600, 10)

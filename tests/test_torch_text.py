@@ -395,17 +395,6 @@ def test_searches_never_see_half_a_flush():
     assert t.count() == 50 + 200 and len(t.search(["common"], 400)[0]) == 250
 
 
-def test_sharded_text_index_is_refused_by_name():
-    from vector_store_tpu_torch import IndexId
-    from vector_store_tpu_torch.engine.text_index import TextIndexBackend
-
-    async def make():
-        TextIndexBackend(IndexId("articles"), n_devices=2, device="cpu")
-
-    with pytest.raises(NotImplementedError, match="sharded BM25"):
-        asyncio.run(make())
-
-
 # --------------------------------------------------------------------------
 # the routes
 

@@ -13,8 +13,10 @@ measurement modules run on the card (python -m vector_store_tpu_torch.probes.*).
 
 Public surface (mirrors vector_store_tpu):
     run(addr, factory)           start engine + HTTP server
-    new_index_factory(device=)   factory serving kinds "ann", "exact", "ivf",
-                                 "text" (and "auto")
+    new_index_factory(device=, n_devices=)
+                                 factory serving kinds "ann", "exact", "ivf",
+                                 "text" (and "auto"), sharded over
+                                 `n_devices` devices when > 1
     wait_for_shutdown()          SIGINT/SIGTERM latch
 """
 
@@ -34,24 +36,29 @@ from .types import (  # noqa: F401
 
 
 def new_index_factory(
-    max_batch: int = 256, window_s: float = 0.002, device: str = "cuda"
+    max_batch: int = 256, window_s: float = 0.002, device="cuda", n_devices: int = 1
 ):
     """Routing factory with the ported backends on `device`: "ann" (the
     graph, the default kind), "exact", "ivf" and "text" (BM25).  kind
     "auto" resolves to "ivf" at declared capacity >= 200k and to "ann"
-    below.  Sharding over several devices (the JAX package's `n_devices`)
-    is not ported."""
+    below.  `n_devices` > 1 shards every kind over that many devices
+    (shard/, text/sharded_bm25.py): the first `n_devices` cards of "cuda",
+    or the device list given as `device`, whose entries may repeat."""
     from .engine.ann_index import AnnIndexFactory
     from .engine.factory import RoutingFactory
     from .engine.text_index import TextIndexFactory
 
     by_kind = {
         kind: AnnIndexFactory(
-            backend=backend, max_batch=max_batch, window_s=window_s, device=device
+            backend=backend,
+            max_batch=max_batch,
+            window_s=window_s,
+            device=device,
+            n_devices=n_devices,
         )
         for kind, backend in (("ann", "graph"), ("exact", "exact"), ("ivf", "ivf"))
     }
-    by_kind["text"] = TextIndexFactory(window_s=window_s, device=device)
+    by_kind["text"] = TextIndexFactory(window_s=window_s, device=device, n_devices=n_devices)
     return RoutingFactory(by_kind)
 
 

@@ -1,7 +1,8 @@
 """Service entry point — `python -m vector_store_tpu_torch --device cuda`.
 
 Loads .env, initialises logging, runs engine + HTTP server on the given
-torch device and waits for SIGINT/SIGTERM.  Optionally starts the
+torch device (`--n-devices N` shards every index over the first N cards,
+0 over all of them) and waits for SIGINT/SIGTERM.  Optionally starts the
 ingestion monitors against a source (the MemDb demo source with --demo; a
 real CDC source would plug in here).  The demo source holds one table of
 64 seeded 8-d rows and the index `demo.items` over it (the JAX package's
@@ -46,6 +47,12 @@ async def main() -> None:
         "--device", default="cuda", help="torch device holding the indexes"
     )
     parser.add_argument(
+        "--n-devices",
+        type=int,
+        default=cfg.n_devices,
+        help="devices to shard indexes over (1=one device, 0=all visible)",
+    )
+    parser.add_argument(
         "--demo",
         action="store_true",
         help="attach an in-memory demo DB source with the ingestion monitors",
@@ -56,12 +63,19 @@ async def main() -> None:
         level=cfg.log_level,
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
+    from .shard.mesh import make_mesh
+
+    # 0 = every visible card; a count above the visible cards fails here
+    n_devices = args.n_devices
+    if n_devices != 1:
+        n_devices = len(make_mesh(n_devices, args.device))
     server, engine = await run(
         args.addr,
         new_index_factory(
             max_batch=cfg.max_batch,
             window_s=cfg.batch_window_ms / 1000.0,
             device=args.device,
+            n_devices=n_devices,
         ),
     )
     print(f"listening on http://{server.addr}  (swagger: /swagger-ui)", flush=True)

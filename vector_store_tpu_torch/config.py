@@ -1,6 +1,6 @@
 """Environment-variable configuration of the service (the port's own copy
 of vector_store_tpu/config.py, with the settings the port's entry point
-reads: no sharding, multi-host or default-capacity settings).
+reads: no multi-host or default-capacity settings).
 
 The reference configures itself purely from env vars / `.env` via dotenvy
 (reference: src/main.rs:17,23-37; README.md "Configuration").  Same model
@@ -56,4 +56,10 @@ class Config:
     # Log level (reference: tracing EnvFilter default "info", src/main.rs:18-21).
     log_level: str = field(
         default_factory=lambda: os.environ.get("VST_TPU_LOG", "INFO")
+    )
+    # Devices to shard indexes over: 1 = one device (default), 0 = every
+    # visible card, N = the first N.  Backed by shard/ (ANN) and
+    # text/sharded_bm25.py (text).
+    n_devices: int = field(
+        default_factory=lambda: int(os.environ.get("VST_TPU_N_DEVICES", "1"))
     )

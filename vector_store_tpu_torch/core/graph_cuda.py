@@ -145,26 +145,27 @@ def expand_score_fused(
         return cand_ids, cand_dist
     from ..kernels.build import load_library
 
-    err = load_library().graph_expand_score(
-        code,
-        vectors.data_ptr(),
-        scales.data_ptr(),
-        queries_f32.data_ptr(),
-        neighbors.data_ptr(),
-        sel_ids.data_ptr(),
-        sel_live.data_ptr(),
-        Q,
-        B,
-        R,
-        C,
-        D,
-        _SPACES[space],
-        int(vectors.dtype == torch.int8),
-        vec,
-        cand_ids.data_ptr(),
-        cand_dist.data_ptr(),
-        torch.cuda.current_stream(vectors.device).cuda_stream,
-    )
+    with torch.cuda.device(vectors.device):  # the launch runs on the current device
+        err = load_library().graph_expand_score(
+            code,
+            vectors.data_ptr(),
+            scales.data_ptr(),
+            queries_f32.data_ptr(),
+            neighbors.data_ptr(),
+            sel_ids.data_ptr(),
+            sel_live.data_ptr(),
+            Q,
+            B,
+            R,
+            C,
+            D,
+            _SPACES[space],
+            int(vectors.dtype == torch.int8),
+            vec,
+            cand_ids.data_ptr(),
+            cand_dist.data_ptr(),
+            torch.cuda.current_stream(vectors.device).cuda_stream,
+        )
     _check_launch("graph_expand_score", err)
     LAUNCHES["expand_score"] += 1
     return cand_ids, cand_dist
@@ -197,22 +198,23 @@ def gather_score_fused(
         return out
     from ..kernels.build import load_library
 
-    err = load_library().graph_gather_score(
-        code,
-        vectors.data_ptr(),
-        scales.data_ptr(),
-        queries_prep.data_ptr(),
-        cand_safe.data_ptr(),
-        Q,
-        BR,
-        C,
-        D,
-        _SPACES[space],
-        int(vectors.dtype == torch.int8),
-        vec,
-        out.data_ptr(),
-        torch.cuda.current_stream(vectors.device).cuda_stream,
-    )
+    with torch.cuda.device(vectors.device):  # the launch runs on the current device
+        err = load_library().graph_gather_score(
+            code,
+            vectors.data_ptr(),
+            scales.data_ptr(),
+            queries_prep.data_ptr(),
+            cand_safe.data_ptr(),
+            Q,
+            BR,
+            C,
+            D,
+            _SPACES[space],
+            int(vectors.dtype == torch.int8),
+            vec,
+            out.data_ptr(),
+            torch.cuda.current_stream(vectors.device).cuda_stream,
+        )
     _check_launch("graph_gather_score", err)
     LAUNCHES["gather_score"] += 1
     return out

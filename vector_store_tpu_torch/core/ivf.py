@@ -65,6 +65,15 @@ FUSED_MAX_K = 32
 # (marked dirty for the incremental compact) instead of doubling the bank.
 # VST_IVF_GROW_MAX_GB sets it, as in the JAX package (default 4).
 GROW_BYTES_MAX = int(float(os.environ.get("VST_IVF_GROW_MAX_GB", "4")) * (1 << 30))
+# A recluster gathers the old bank into the new one on the device, which
+# holds both at once.  Where that cannot fit it stages the permutation
+# through host memory instead (`permute_via_host`).  The rule: on CUDA, at
+# the moment of the recluster, the new bank plus the permutation's index
+# arrays must fit in what the device has free while the old bank is still
+# held (`torch.cuda.mem_get_info` plus the allocator's unused cache); on the
+# CPU never.  Setting this attribute to a byte count replaces the rule on
+# any device: the host path is taken when old + new bank exceed it.
+HOST_PERMUTE_BYTES: int | None = None
 # Rows per bucket target (see the JAX package for the geometry trade).
 ROWS_PER_BUCKET = int(os.environ.get("VST_IVF_ROWS_PER_BUCKET", "170"))
 # k-means: assignment chunk, Lloyd sample cap and iterations
@@ -134,6 +143,21 @@ def init(dims: int, k: int, bucket: int, dtype: str, device) -> IvfState:
         scales=torch.ones((k, bucket), dtype=torch.float32, device=device),
         valid=torch.zeros((k, bucket), dtype=torch.bool, device=device),
         rowid=torch.full((k, bucket), SENTINEL, dtype=torch.int32, device=device),
+    )
+
+
+def grow_bucket(s: IvfState) -> IvfState:
+    """The state with every bucket twice as wide (contents kept)."""
+
+    def grow(t, fill):
+        return torch.cat([t, torch.full_like(t, fill)], dim=1)
+
+    return IvfState(
+        centroids=s.centroids,
+        vectors=grow(s.vectors, 0),
+        scales=grow(s.scales, 1.0),
+        valid=grow(s.valid, False),
+        rowid=grow(s.rowid, SENTINEL),
     )
 
 
@@ -288,6 +312,60 @@ def permute_build(
     )
 
 
+def permute_through_host(device: torch.device, old_bytes: int, new_bytes: int, slots: int) -> bool:
+    """Whether a recluster into a bank of `new_bytes` and `slots` slots must
+    go through host memory (the rule stated at HOST_PERMUTE_BYTES)."""
+    if HOST_PERMUTE_BYTES is not None:
+        return old_bytes + new_bytes > HOST_PERMUTE_BYTES
+    if device.type != "cuda":
+        return False
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    # int64 perm, its clamped copy and the mask; scales, valid and rowid
+    index_bytes = slots * (8 + 8 + 1 + 4 + 1 + 4 + 4)
+    return new_bytes + index_bytes > free
+
+
+def permute_via_host(
+    box: list,  # [IvfState]: the only reference to the old state
+    centroids: torch.Tensor,
+    perm: np.ndarray,  # [K', B'] flat source slot in old (SENTINEL = empty)
+) -> IvfState:
+    """`permute_build` staged through host memory, for a bank too big to
+    hold twice: the old bank comes down in K-slices (never reshaped on the
+    device, which would copy it), is freed before the new one is allocated,
+    is gathered on the host and goes up again.  The result equals
+    `permute_build`'s tensor for tensor (an empty slot holds the old bank's
+    last row there too)."""
+    s = box[0]
+    device = s.vectors.device
+    K, B, D = s.vectors.shape
+    vec_h = torch.empty((K * B, D), dtype=s.vectors.dtype)
+    kstep = max((1 << 28) // (B * D * s.vectors.element_size()), 1)
+    for k0 in range(0, K, kstep):
+        blk = s.vectors[k0 : k0 + kstep].cpu()
+        vec_h[k0 * B : (k0 + blk.shape[0]) * B] = blk.reshape(-1, D)
+    scl_h = s.scales.cpu().reshape(-1)
+    rid_h = s.rowid.cpu().reshape(-1)
+    del blk, s
+    box.clear()  # the old bank goes before the new one is allocated
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    perm_t = torch.from_numpy(np.ascontiguousarray(perm))
+    ok = perm_t != SENTINEL
+    src = torch.clamp(perm_t, 0, K * B - 1)
+    new_vec = vec_h[src]
+    del vec_h
+    return IvfState(
+        centroids=centroids,
+        vectors=new_vec.to(device),
+        scales=scl_h[src].to(device),
+        valid=ok.to(device),
+        rowid=torch.where(ok, rid_h[src], SENTINEL).to(device),
+    )
+
+
 # --------------------------------------------------------------------------
 # two-stage scan: int4 coarse probe + int8 exact rescore
 
@@ -356,6 +434,18 @@ def search_two_stage(
     bd, pos = topk_ascending(pool, C)  # pool lane r*B + j: row j of cids[:, r]
     bflat = torch.gather(cids, 1, pos // B).long() * B + pos % B
     return _rescore_flat(state, q, bd, bflat, space, k)
+
+
+def coarse_flag(coarse: bool | None, dtype: str, dims: int) -> bool:
+    """Whether an index serves the two-stage scan (int4 coarse + int8
+    rescore): an explicit argument wins, else VST_IVF_COARSE=1 opts in (=0
+    vetoes even the argument); int8 banks with even D only."""
+    env4 = os.environ.get("VST_IVF_COARSE")
+    if coarse is None:
+        coarse = env4 == "1"
+    elif env4 == "0":
+        coarse = False
+    return bool(coarse) and dtype == "int8" and dims % 2 == 0
 
 
 def scan_path(k: int, dims: int) -> str:
@@ -450,15 +540,7 @@ class IvfIndex:
         self.dims = params.dimensions
         self.probes = probes
         self.device = torch.device(device)
-        # two-stage scan (int4 coarse + int8 rescore): an explicit argument
-        # wins, else VST_IVF_COARSE=1 opts in (=0 vetoes even the argument);
-        # int8 banks with even D only
-        env4 = os.environ.get("VST_IVF_COARSE")
-        if coarse is None:
-            coarse = env4 == "1"
-        elif env4 == "0":
-            coarse = False
-        self.coarse = bool(coarse) and self.dtype == "int8" and self.dims % 2 == 0
+        self.coarse = coarse_flag(coarse, self.dtype, self.dims)
         # rescored candidates per query: max(rescore * k, 64)
         self.rescore = rescore
         self._coarse_bank: torch.Tensor | None = None
@@ -516,17 +598,7 @@ class IvfIndex:
     def _grow_bucket(self) -> None:
         """Double B -- realloc event, ids unaffected."""
         s = self._state
-
-        def grow(t, fill):
-            return torch.cat([t, torch.full_like(t, fill)], dim=1)
-
-        self._state = IvfState(
-            centroids=s.centroids,
-            vectors=grow(s.vectors, 0),
-            scales=grow(s.scales, 1.0),
-            valid=grow(s.valid, False),
-            rowid=grow(s.rowid, SENTINEL),
-        )
+        self._state = grow_bucket(s)
         B = s.bucket
         self._valid_h = np.pad(self._valid_h, ((0, 0), (0, B)))
         self._rowid_h = np.pad(self._rowid_h, ((0, 0), (0, B)), constant_values=-1)
@@ -808,8 +880,18 @@ class IvfIndex:
         perm = np.full((k_new, b_new), SENTINEL, dtype=np.int64)
         perm[ks, poss] = flat_live
         rowid_flat = self._rowid_h.reshape(-1)
-        self._state = permute_build(s, centroids, self._idx(perm))
-        del s
+        bank_row = s.dims * s.vectors.element_size()
+        if permute_through_host(
+            self.device, s.vectors.numel() * s.vectors.element_size(),
+            k_new * b_new * bank_row, k_new * b_new,
+        ):
+            box = [s]
+            del s  # the box holds the only reference to the old bank now
+            self._state = None
+            self._state = permute_via_host(box, centroids, perm)
+        else:
+            self._state = permute_build(s, centroids, self._idx(perm))
+            del s
 
         # host mirrors follow the same permutation
         placed_rowids = rowid_flat[flat_live]

@@ -341,28 +341,29 @@ def search_fused(
     ws = torch.empty(3 * n + 2 + 2 * n * k + 256, dtype=torch.int32, device=vectors.device)
     for off in range(0, Q, qc):
         m = min(qc, Q - off)
-        err = lib.ivf_search_fused(
-            _DTYPES[vectors.dtype],
-            _SCORES[score],
-            vectors.data_ptr(),
-            scales.data_ptr(),
-            rowid_masked.data_ptr(),
-            queries_prep[off].data_ptr(),
-            cids[off].data_ptr(),
-            nsb.data_ptr(),
-            m,
-            B,
-            D,
-            p,
-            k,
-            _SPACES[space],
-            int(vectors.dtype == torch.int8),
-            vec,
-            ws.data_ptr(),
-            out_d[off].data_ptr(),
-            out_r[off].data_ptr(),
-            stream,
-        )
+        with torch.cuda.device(vectors.device):  # the launch runs on the current device
+            err = lib.ivf_search_fused(
+                _DTYPES[vectors.dtype],
+                _SCORES[score],
+                vectors.data_ptr(),
+                scales.data_ptr(),
+                rowid_masked.data_ptr(),
+                queries_prep[off].data_ptr(),
+                cids[off].data_ptr(),
+                nsb.data_ptr(),
+                m,
+                B,
+                D,
+                p,
+                k,
+                _SPACES[space],
+                int(vectors.dtype == torch.int8),
+                vec,
+                ws.data_ptr(),
+                out_d[off].data_ptr(),
+                out_r[off].data_ptr(),
+                stream,
+            )
         _check_launch("ivf_search_fused", err)
         LAUNCHES["search_fused"] += 1
         SCORE_LAUNCHES[score] += 1
@@ -390,10 +391,11 @@ def worklist(cids: torch.Tensor, tile: int = TILE):
     ws = torch.empty(3 * N + 2, dtype=torch.int32, device=cids.device)
     from ..kernels.build import load_library
 
-    err = load_library().ivf_b1_worklist(
-        cids.data_ptr(), N, ws.data_ptr(), ws[N:].data_ptr(), ws[2 * N :].data_ptr(),
-        ws[3 * N :].data_ptr(), torch.cuda.current_stream(cids.device).cuda_stream,
-    )
+    with torch.cuda.device(cids.device):  # the launch runs on the current device
+        err = load_library().ivf_b1_worklist(
+            cids.data_ptr(), N, ws.data_ptr(), ws[N:].data_ptr(), ws[2 * N :].data_ptr(),
+            ws[3 * N :].data_ptr(), torch.cuda.current_stream(cids.device).cuda_stream,
+        )
     _check_launch("ivf_b1_worklist", err)
     return ws[:N], ws[N : 2 * N], ws[2 * N : 3 * N], ws[3 * N : 3 * N + 1]
 
@@ -493,26 +495,27 @@ def pool_scan_fused(
     n = min(Q, qc) * p
     ws = torch.empty(3 * n + 2 + 256, dtype=torch.int32, device=vectors.device)
     for off in range(0, Q, qc):
-        err = lib.ivf_pool_scan(
-            code,
-            vectors.data_ptr(),
-            scales.data_ptr(),
-            rowid_masked.data_ptr(),
-            queries_prep[off].data_ptr(),
-            cids[off].data_ptr(),
-            nsb.data_ptr(),
-            min(qc, Q - off),
-            B,
-            D,
-            pool_chunk(D, packed),
-            p,
-            _SPACES[space],
-            int(packed or vectors.dtype == torch.int8),
-            vec,
-            ws.data_ptr(),
-            out[off].data_ptr(),
-            stream,
-        )
+        with torch.cuda.device(vectors.device):  # the launch runs on the current device
+            err = lib.ivf_pool_scan(
+                code,
+                vectors.data_ptr(),
+                scales.data_ptr(),
+                rowid_masked.data_ptr(),
+                queries_prep[off].data_ptr(),
+                cids[off].data_ptr(),
+                nsb.data_ptr(),
+                min(qc, Q - off),
+                B,
+                D,
+                pool_chunk(D, packed),
+                p,
+                _SPACES[space],
+                int(packed or vectors.dtype == torch.int8),
+                vec,
+                ws.data_ptr(),
+                out[off].data_ptr(),
+                stream,
+            )
         _check_launch("ivf_pool_scan", err)
         LAUNCHES["pool_scan"] += 1
     return out

@@ -1,8 +1,9 @@
 """ANN index backend: the per-index actor over a graph, exact or IVF index
 on a torch device.
 
-Counterpart of vector_store_tpu/engine/ann_index.py on one device (the
-sharded backends are still to port).  Queries go through a MicroBatcher
+Counterpart of vector_store_tpu/engine/ann_index.py.  With `n_devices` > 1
+the index is document-sharded over a device list (shard/).  Queries go
+through a MicroBatcher
 that coalesces concurrent Ann requests into one device batch; consecutive
 AddOrReplace / Remove messages in the mailbox are applied as one batched
 insert/delete.
@@ -75,13 +76,28 @@ class AnnIndexBackend:
         window_s: float = 0.002,
         backend: str = "graph",
         reserve_rows: int = 0,
-        device: str = "cuda",
+        device="cuda",
+        n_devices: int = 1,
     ) -> None:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         self.index_id = index_id
         self.params = params
-        if backend == "ivf":
+        # `device` may be a device list, which is then the mesh as given
+        if n_devices > 1 and backend == "ivf":
+            # document-sharded IVF (the add/remove/search/count surface of
+            # the single-device IvfIndex)
+            from ..shard.sharded_ivf import ShardedIvfIndex
+
+            self.index = ShardedIvfIndex(params, n_devices=n_devices, device=device)
+        elif n_devices > 1:
+            # document-sharded graph / exact index
+            from ..shard.sharded_index import ShardedSlotIndex
+
+            self.index = ShardedSlotIndex(
+                params, n_devices=n_devices, exact=backend == "exact", device=device
+            )
+        elif backend == "ivf":
             # reserve_rows: bulk-load hint, sizes the clustering and the
             # staging bank for the expected final row count (core/ivf.py)
             self.index = IvfIndex(
@@ -117,7 +133,11 @@ class AnnIndexBackend:
         # device batches in flight
         with self._serve_lock:
             with metrics.timed("vst_ann_batch_seconds", backend=type(self.index).__name__):
-                fetch = self.index.search_dispatch(queries, k_max)
+                if hasattr(self.index, "search_dispatch"):
+                    fetch = self.index.search_dispatch(queries, k_max)
+                else:  # sharded backends search whole under the lock
+                    res = self.index.search(queries, k_max)
+                    fetch = lambda: res  # noqa: E731
                 keymap = self.keymap
         dist, slots = fetch()
         out = []
@@ -250,7 +270,7 @@ class AnnIndexBackend:
         elif isinstance(msg, Count):
             msg.reply.set_result(self.index.count())
         elif isinstance(msg, Compact):
-            if isinstance(self.index, SlotIndex):
+            if hasattr(self.index, "compact_prepare"):
                 await self._compact_slots()
             else:
                 # id-stable backend (IVF): compact() reclusters under the
@@ -265,7 +285,7 @@ class AnnIndexBackend:
             raise TypeError(f"unknown message {msg!r}")
 
     async def _compact_slots(self) -> None:
-        """Slot-moving compaction (graph/exact): rebuild offline in the
+        """Slot-moving compaction (graph/exact, sharded or not): rebuild offline in the
         executor while queries keep serving the old (state, keymap) pair,
         then swap the state and a new keymap in one serve-lock section."""
         scratch, remap = await self._loop.run_in_executor(None, self.index.compact_prepare)
@@ -303,7 +323,8 @@ class AnnIndexFactory:
         window_s: float = 0.002,
         backend: str = "graph",
         reserve_rows: int = 0,
-        device: str = "cuda",
+        device="cuda",
+        n_devices: int = 1,
     ) -> None:
         self.default_params = default_params
         self.max_batch = max_batch
@@ -311,6 +332,7 @@ class AnnIndexFactory:
         self.backend = backend
         self.reserve_rows = reserve_rows
         self.device = device
+        self.n_devices = n_devices
 
     def create_index(
         self, index_id: IndexId, metadata: Optional[IndexMetadata] = None
@@ -326,6 +348,7 @@ class AnnIndexFactory:
             backend=self.backend,
             reserve_rows=self.reserve_rows,
             device=self.device,
+            n_devices=self.n_devices,
         )
         handle = spawn_index_actor(backend, name=str(index_id))
         # in-process callers (benchmarks, the chip smoke) reach the index

@@ -17,9 +17,8 @@ parity notes:
 
 `Add` runs `BM25Index.add` in the executor while the batcher's flushes run
 `BM25Index.search` on other executor threads; the index's own lock orders
-them (text/bm25.py).  Document-sharded BM25 over several devices
-(`n_devices > 1`, the JAX package's text/sharded_bm25.py) is not ported:
-asking for it raises.
+them (text/bm25.py).  With `n_devices` > 1 the documents are sharded over
+a device list (text/sharded_bm25.py: the same flat-slot surface).
 """
 
 from __future__ import annotations
@@ -44,15 +43,15 @@ class TextIndexBackend:
         max_batch: int = 64,
         window_s: float = 0.002,
         n_devices: int = 1,
-        device: str = "cuda",
+        device="cuda",
     ) -> None:
         self.index_id = index_id
         if n_devices > 1:
-            raise NotImplementedError(
-                f"text index over n_devices={n_devices}: the sharded BM25 index "
-                "(text/sharded_bm25.py of the JAX package) is not ported yet"
-            )
-        self.index = BM25Index(device=device)
+            from ..text.sharded_bm25 import ShardedBM25Index
+
+            self.index = ShardedBM25Index(n_devices=n_devices, device=device)
+        else:
+            self.index = BM25Index(device=device)
         self.keymap = KeyMap()
         self._batcher = MicroBatcher(
             self._run_query_batch, max_batch=max_batch, window_s=window_s
@@ -131,7 +130,7 @@ class TextIndexFactory:
         max_batch: int = 64,
         window_s: float = 0.002,
         n_devices: int = 1,
-        device: str = "cuda",
+        device="cuda",
     ) -> None:
         self.max_batch = max_batch
         self.window_s = window_s

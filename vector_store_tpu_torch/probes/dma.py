@@ -82,17 +82,18 @@ def stream(q: torch.Tensor, bank: torch.Tensor, score: bool, nbuf: int = NBUF) -
     from ..core.ivf_cuda import _check_launch
     from ..kernels.build import load_library
 
-    err = load_library().copy_probe_stream(
-        q.data_ptr(),
-        bank.data_ptr(),
-        nblocks,
-        B,
-        D,
-        int(score),
-        nbuf,
-        acc.data_ptr(),
-        torch.cuda.current_stream(bank.device).cuda_stream,
-    )
+    with torch.cuda.device(bank.device):  # the launch runs on the current device
+        err = load_library().copy_probe_stream(
+            q.data_ptr(),
+            bank.data_ptr(),
+            nblocks,
+            B,
+            D,
+            int(score),
+            nbuf,
+            acc.data_ptr(),
+            torch.cuda.current_stream(bank.device).cuda_stream,
+        )
     _check_launch("copy_probe_stream", err)
     LAUNCHES["stream"] += 1
     return acc[-1:]

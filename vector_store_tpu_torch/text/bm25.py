@@ -432,6 +432,18 @@ class BM25Index:
             self._dirty_slots.clear()
         return self._dev
 
+    def _score(self, arrays, packed, avg, k: int, use_ops: bool):
+        """Enqueue the scorer over the device tensors `arrays` for the packed
+        query batch (numpy) -> (score [Q, k] descending, slot [Q, k])."""
+        dev = self.device
+        return _score_topk(
+            *arrays,
+            *(torch.from_numpy(a).to(dev) for a in packed),
+            torch.tensor(avg, dtype=torch.float32, device=dev),
+            k,
+            use_ops=use_ops,
+        )
+
     def _idf(self, term: int) -> float:
         n, df = max(self._size, 1), self._df.get(term, 0)
         return float(np.log(1.0 + (n - df + 0.5) / (df + 0.5)))
@@ -529,13 +541,7 @@ class BM25Index:
             k_fetch = max(k_fetch, k)
             arrays = self._device_arrays()
             avg = np.float32(max(self._total_len / max(self._size, 1), 1.0))
-            scores, ids = _score_topk(
-                *arrays,
-                *(torch.from_numpy(a).to(self.device) for a in packed),
-                torch.tensor(avg, dtype=torch.float32, device=self.device),
-                k_fetch,
-                use_ops=use_ops,
-            )
+            scores, ids = self._score(arrays, packed, avg, k_fetch, use_ops)
         scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
         out = []
         for j, p in enumerate(parsed):
