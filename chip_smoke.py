@@ -108,7 +108,8 @@ parallel), then:
      B1 launched once a chunk on every shard, and held against its plain
      version on one shard's bank; keys back from gids; limit 50 through
      B2), the two-stage scan on those banks (recall >= 0.85 and >= the
-     single-stage's minus 0.10; B2 packed on every shard), a snapshot saved,
+     single-stage's minus 0.10; B2 packed on every shard, and held against
+     its plain version on one shard's packed bank), a snapshot saved,
      loaded onto the same mesh and searched (the same ids; a mesh of two is
      refused); ingest vec/s and batch QPS of a 4-shard index beside a
      1-shard index of the same rows, in turns, and the merge's share of a
@@ -116,8 +117,9 @@ parallel), then:
      host with the threshold forced, its bank equal tensor for tensor to
      the device permute of the same plan; kind "ann" with n_devices=4 over
      HTTP (131,072 + 256 rows, bf16: recall@10 >= 0.90 against the exact
-     f32 oracle, B3 on every shard, 1,000 removes, a compaction whose gid
-     remap the keymap follows); a ShardedBM25Index of phase 10's 100,000
+     f32 oracle, B3 on every shard and held against its plain version on a
+     round captured from one shard's graph, 1,000 removes, a compaction
+     whose gid remap the keymap follows); a ShardedBM25Index of phase 10's 100,000
      documents against the single index and the oracle.
 
 Any failed phase raises and the exit code is non-zero.  The last line is
@@ -2163,7 +2165,7 @@ async def phase_sharded_ivf(torch, data, single_recall, device="cuda", shards=N_
 
     from vector_store_tpu_torch import IndexId, new_index_factory, run
     from vector_store_tpu_torch.core import ivf_cuda
-    from vector_store_tpu_torch.core.ivf import QCHUNK
+    from vector_store_tpu_torch.core.ivf import QCHUNK, derive_coarse
     from vector_store_tpu_torch.shard.sharded_ivf import ShardedIvfIndex
 
     corpus, extra, queries, truth = data
@@ -2255,6 +2257,25 @@ async def phase_sharded_ivf(torch, data, single_recall, device="cuda", shards=N_
             if device == "cuda" and out["launches_two_stage"] != {
                     "search_fused": 0, "pool_scan": shards * -(-len(queries) // QCHUNK)}:
                 raise AssertionError(f"two-stage launches {out['launches_two_stage']}")
+            # B2 against its plain version on one shard's packed bank, as
+            # the two-stage scan calls it (the rounded query, this shard's route)
+            st = idx.states[1]
+            # (a rehearsal too small to have clustered has derived no bank yet)
+            coarse = idx._coarse_banks[1] if idx._coarse_banks else derive_coarse(st.vectors)
+            q2, cids2, _ = ivf_cuda.route(
+                st, torch.as_tensor(queries[:256], device=device), "cosine", idx.probes, rounded=True)
+            rid2, nsb2 = ivf_cuda.scan_masks(st)
+            args = (coarse, st.scales, rid2, q2.float(), cids2, "cosine", True, nsb2)
+            pool_k, pool_p = ivf_cuda.pool_scan_fused(*args), ivf_cuda.pool_scan_plain(*args)
+            _sync(torch, device)
+            if not torch.equal(torch.isinf(pool_k), torch.isinf(pool_p)):
+                raise AssertionError("B2 INF pattern differs from plain on a shard's packed bank")
+            out["err_b2"] = float((pool_k - pool_p)[torch.isfinite(pool_p)].abs().max())
+            log(f"  B2 vs plain on shard 1's packed int4 bank (256 queries, p {idx.probes}, pool "
+                f"{tuple(pool_p.shape)}): max|d err| {out['err_b2']:.3e}, INF where plain has INF")
+            if out["err_b2"] > TOL:
+                raise AssertionError(f"B2 disagrees with plain on a shard's bank: {out['err_b2']}")
+            del pool_k, pool_p
             idx.coarse = False
 
             # snapshot: saved, loaded onto the same mesh, searched
@@ -2399,6 +2420,29 @@ async def phase_sharded_graph(torch, n=N_GRAPH, device="cuda", n_remove=N_REMOVE
                                      or out["launches_query"] % shards):
                 raise AssertionError(f"B3 did not launch on every shard: {one}, {out}")
             out["launches_query"] += one
+
+            # B3 against its plain version on one shard's graph, on the
+            # middle expand round of a real search of that shard
+            import types
+
+            shard = types.SimpleNamespace(_lock=idx._lock, _state=idx.states[1],
+                                          device=mesh[1], cfg=idx.cfg)
+            _, (qf, sel, live), cfg = graph_rounds(torch, shard, queries[:256],
+                                                   capture=idx.cfg.search_iters // 2)
+            st = idx.states[1]
+            i_k, e_k = graph_cuda.expand_score_fused(
+                st.vectors, st.scales, st.neighbors, qf, sel, live, cfg.space)
+            i_p, e_p = graph_cuda.expand_score_plain(
+                st.vectors, st.scales, st.neighbors, qf, sel, live, cfg.space)
+            _sync(torch, device)
+            if not torch.equal(i_k, i_p) or not torch.equal(torch.isinf(e_k), torch.isinf(e_p)):
+                raise AssertionError("B3 expand on a shard's graph: ids or INF pattern differ")
+            out["err"] = float((e_k - e_p)[torch.isfinite(e_p)].abs().max())
+            log(f"  B3 vs plain on shard 1's graph ({st.capacity} x {DIM} bf16, a captured round of "
+                f"256 queries, beam {cfg.beam_width} x degree {cfg.degree}): max|d err| "
+                f"{out['err']:.3e}, ids equal")
+            if out["err"] > TOL:
+                raise AssertionError(f"B3 disagrees with plain on a shard's graph: {out['err']}")
 
             removed = set(range(0, n, max(n // n_remove, 1))[:n_remove])
             left = [[k for k in row.tolist() if k not in removed][:10] for row in deep]
@@ -2718,6 +2762,7 @@ def main() -> int:
             "launches": svc["launches"]["pool_scan"],
             "launches_sharded": sh_ivf["launches"]["pool_scan"]
             + sh_ivf["launches_two_stage"]["pool_scan"],
+            "max_abs_err_sharded": sh_ivf["err_b2"],
             "max_abs_err": report["pool_scan"]["err"],
             # times: phase 1's shapes, int8, cosine, cold L2 (median of turns)
             "ms": b2[0],
@@ -2743,6 +2788,7 @@ def main() -> int:
             "launches_query": gsvc["launches_query"],
             "launches_snapshot_search": snap["launches"],
             "launches_sharded": sh_graph["launches_ingest"] + sh_graph["launches_query"],
+            "max_abs_err_sharded": sh_graph["err"],
             "max_abs_err": b3_err,
             "ms": b3["search"][0],
             "plain_ms": b3["search"][1],
