@@ -30,7 +30,6 @@ import asyncio
 import json
 import logging
 import os
-import time
 
 import numpy as np
 from aiohttp import web
@@ -377,33 +376,28 @@ async def get_swagger(request: web.Request) -> web.Response:
 
 @web.middleware
 async def _metrics_middleware(request: web.Request, handler):
-    t0 = time.time()
+    # unmatched requests collapse to one label, so random paths cannot
+    # grow the registry without bound
+    resource = request.match_info.route.resource
+    route = resource.canonical if resource is not None else "unmatched"
+    if route in ("/metrics", "/healthz"):
+        return await handler(request)
     status = 500
     try:
-        resp = await handler(request)
+        with metrics.span("vst_http_request_seconds", method=request.method, route=route):
+            resp = await handler(request)
         status = resp.status
         return resp
     except web.HTTPException as exc:
         status = exc.status
         raise
     finally:
-        # unmatched requests collapse to one label, so random paths cannot
-        # grow the registry without bound
-        route = (
-            request.match_info.route.resource.canonical
-            if request.match_info.route.resource is not None
-            else "unmatched"
-        )
-        if route not in ("/metrics", "/healthz"):
-            metrics.counter(
-                "vst_http_requests_total",
-                method=request.method,
-                route=route,
-                status=str(status),
-            ).inc()
-            metrics.histogram(
-                "vst_http_request_seconds", method=request.method, route=route
-            ).observe(time.time() - t0)
+        metrics.counter(
+            "vst_http_requests_total",
+            method=request.method,
+            route=route,
+            status=str(status),
+        ).inc()
 
 
 @web.middleware

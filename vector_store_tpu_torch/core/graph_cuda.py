@@ -13,13 +13,15 @@ One kernel template in csrc/graph_gather.cu, two entry points:
 
 Each wrapper chooses by the device of the tensors it is given: CPU tensors
 go to the plain PyTorch version beside it, CUDA tensors launch the kernel
-(or raise).  LAUNCHES counts kernel launches only, by entry point.
+(or raise).  LAUNCHES counts kernel launches only, by entry point; while a
+torch.profiler runs, each launch is also a range kernel.b3_<entry point>.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import metrics
 from .ivf_cuda import _DTYPES, _SPACES, _check_launch
 from .topk import INF, SENTINEL
 
@@ -145,7 +147,10 @@ def expand_score_fused(
         return cand_ids, cand_dist
     from ..kernels.build import load_library
 
-    with torch.cuda.device(vectors.device):  # the launch runs on the current device
+    with (
+        torch.cuda.device(vectors.device),  # the launch runs on the current device
+        metrics.span("kernel.b3_expand_score", series=False),
+    ):
         err = load_library().graph_expand_score(
             code,
             vectors.data_ptr(),
@@ -198,7 +203,10 @@ def gather_score_fused(
         return out
     from ..kernels.build import load_library
 
-    with torch.cuda.device(vectors.device):  # the launch runs on the current device
+    with (
+        torch.cuda.device(vectors.device),  # the launch runs on the current device
+        metrics.span("kernel.b3_gather_score", series=False),
+    ):
         err = load_library().graph_gather_score(
             code,
             vectors.data_ptr(),

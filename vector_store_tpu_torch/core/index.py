@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..types import IndexParams
+from ..utils import metrics
 
 from . import build, bruteforce, cluster, graph, search
 from .distance import preprocess
@@ -144,7 +145,8 @@ class SlotIndex:
         new_cap = cap
         while need + self.insert_block > new_cap:
             new_cap *= 2
-        self._state = graph.grow(state, new_cap)
+        with metrics.span("vst_graph_grow_seconds"):
+            self._state = graph.grow(state, new_cap)
         self.cfg = dataclasses.replace(self.cfg, routing_sample=routing_sample_for(new_cap))
 
     def add(self, vectors: np.ndarray) -> np.ndarray:
@@ -162,15 +164,16 @@ class SlotIndex:
             step = build.upload_impl if self._exact else build.insert_impl
             block = self.insert_block
             for off in range(0, n, block):
-                m = min(block, n - off)
-                blk = torch.zeros((block, d), dtype=torch.float32, device=self.device)
-                blk[:m] = torch.as_tensor(vectors[off : off + m], device=self.device)
-                if self.cfg.dtype != "float32":
-                    # bf16 and int8 banks see the rows rounded to bf16 first,
-                    # as the JAX package ships them (index.py:214-221)
-                    blk = blk.to(torch.bfloat16)
-                live = torch.arange(block, device=self.device) < m
-                step(self._state, base + off, blk, live, self.cfg)
+                with metrics.span("vst_graph_insert_block_seconds"):
+                    m = min(block, n - off)
+                    blk = torch.zeros((block, d), dtype=torch.float32, device=self.device)
+                    blk[:m] = torch.as_tensor(vectors[off : off + m], device=self.device)
+                    if self.cfg.dtype != "float32":
+                        # bf16 and int8 banks see the rows rounded to bf16 first,
+                        # as the JAX package ships them (index.py:214-221)
+                        blk = blk.to(torch.bfloat16)
+                    live = torch.arange(block, device=self.device) < m
+                    step(self._state, base + off, blk, live, self.cfg)
                 self._maybe_rebuild_router_locked(base + off + m)
             # bound router staleness at the end of the call: a bulk load can
             # otherwise end with up to half the bank ring-assigned onto a
@@ -193,7 +196,10 @@ class SlotIndex:
     def _rebuild_router_locked(self, frontier: int, k: int | None = None) -> None:
         k = k or cluster.route_k_for(frontier)
         cfg = dataclasses.replace(self.cfg, route_k=k)
-        centroids, members, m_cnt = cluster.build_router(self._state, cfg, k, cfg.route_members_per)
+        with metrics.span("vst_graph_router_rebuild_seconds"):
+            centroids, members, m_cnt = cluster.build_router(
+                self._state, cfg, k, cfg.route_members_per
+            )
         self.cfg = cfg
         self._state = dataclasses.replace(
             self._state, route_centroids=centroids, route_members=members, route_cnt=m_cnt
@@ -287,7 +293,7 @@ class SlotIndex:
         n, d = queries.shape
         if d != self.cfg.dims:
             raise ValueError(f"dimension mismatch: index {self.cfg.dims}, got {d}")
-        with self._lock:
+        with self._lock, metrics.span("index.search_dispatch", series=False):
             state = self._state
             q = torch.as_tensor(queries, device=self.device)
             if exact:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..types import IndexParams
+from ..utils import metrics
 from ..utils.persistio import atomic_savez
 
 from . import ivf_cuda
@@ -598,7 +599,8 @@ class IvfIndex:
     def _grow_bucket(self) -> None:
         """Double B -- realloc event, ids unaffected."""
         s = self._state
-        self._state = grow_bucket(s)
+        with metrics.span("vst_ivf_grow_bucket_seconds"):
+            self._state = grow_bucket(s)
         B = s.bucket
         self._valid_h = np.pad(self._valid_h, ((0, 0), (0, B)))
         self._rowid_h = np.pad(self._rowid_h, ((0, 0), (0, B)), constant_values=-1)
@@ -621,10 +623,11 @@ class IvfIndex:
             for off in range(0, n, ADD_CHUNK):
                 blk = vectors[off : off + ADD_CHUNK]
                 rid = rowids[off : off + ADD_CHUNK]
-                if self._clustered:
-                    self._add_clustered(blk, rid)
-                else:
-                    self._add_staging(blk, rid)
+                with metrics.span("vst_ivf_place_seconds"):
+                    if self._clustered:
+                        self._add_clustered(blk, rid)
+                    else:
+                        self._add_staging(blk, rid)
             self._n_live += n
             self._maybe_recluster()
         return rowids
@@ -837,11 +840,17 @@ class IvfIndex:
         self._loc[rowids, 1] = poss
 
     def _recluster_locked(self) -> None:
+        with metrics.span("vst_ivf_recluster_seconds", via="device") as labels:
+            labels["via"] = self._recluster_into_new_bank()
+
+    def _recluster_into_new_bank(self) -> str:
+        """k-means over the live rows, each row placed anew; returns the
+        path of the bank's permutation, "host" or "device"."""
         s = self._state
         flat_live = np.flatnonzero(self._valid_h.reshape(-1))
         n = len(flat_live)
         if n == 0:
-            return
+            return "device"
         k_new = k_for(max(n, self._reserve), self.rows_per_bucket)
         cdt = s.centroids.dtype
         a_chunk = ASSIGN_CHUNK if k_new <= (1 << 15) else 1024
@@ -881,10 +890,12 @@ class IvfIndex:
         perm[ks, poss] = flat_live
         rowid_flat = self._rowid_h.reshape(-1)
         bank_row = s.dims * s.vectors.element_size()
+        via = "device"
         if permute_through_host(
             self.device, s.vectors.numel() * s.vectors.element_size(),
             k_new * b_new * bank_row, k_new * b_new,
         ):
+            via = "host"
             box = [s]
             del s  # the box holds the only reference to the old bank now
             self._state = None
@@ -910,6 +921,7 @@ class IvfIndex:
         self._clustered_at = self._n_live
         self._coarse_stale = True  # whole bank permuted; re-derive
         self._coarse_bank = None
+        return via
 
     # -- query ----------------------------------------------------------------
 
@@ -949,7 +961,7 @@ class IvfIndex:
         if d != self.dims:
             raise ValueError(f"dimension mismatch: index {self.dims}, got {d}")
         outs_d, outs_i = [], []
-        with self._lock:
+        with self._lock, metrics.span("index.search_dispatch", series=False):
             state = self._state
             clustered = self._clustered
             masks = scan_masks(state) if clustered else None

@@ -19,7 +19,9 @@ csrc/ivf_scan.cu:
 Each wrapper chooses by the device of the tensors it is given: CPU tensors
 go to the plain PyTorch version beside it, CUDA tensors launch the kernel
 (or raise).  LAUNCHES counts B1 and B2 calls (B1_KERNELS_PER_CALL and
-B2_KERNELS_PER_CALL launches each), never the plain versions.
+B2_KERNELS_PER_CALL launches each), never the plain versions; while a
+torch.profiler runs, each call's launch is also a range (kernel.b1_search_fused,
+kernel.b2_pool_scan).
 
 search_clustered_fused / search_clustered_pool add the centroid route in
 plain torch, as XLA did outside the Pallas kernels.
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import metrics
 from .distance import pairwise, preprocess
 from .quantize import int4_scale, unpack_int4
 from .topk import INF, SENTINEL, lexsort_stable, topk_ascending, topk_ascending_stable
@@ -341,7 +344,10 @@ def search_fused(
     ws = torch.empty(3 * n + 2 + 2 * n * k + 256, dtype=torch.int32, device=vectors.device)
     for off in range(0, Q, qc):
         m = min(qc, Q - off)
-        with torch.cuda.device(vectors.device):  # the launch runs on the current device
+        with (
+            torch.cuda.device(vectors.device),  # the launch runs on the current device
+            metrics.span("kernel.b1_search_fused", series=False),
+        ):
             err = lib.ivf_search_fused(
                 _DTYPES[vectors.dtype],
                 _SCORES[score],
@@ -495,7 +501,10 @@ def pool_scan_fused(
     n = min(Q, qc) * p
     ws = torch.empty(3 * n + 2 + 256, dtype=torch.int32, device=vectors.device)
     for off in range(0, Q, qc):
-        with torch.cuda.device(vectors.device):  # the launch runs on the current device
+        with (
+            torch.cuda.device(vectors.device),  # the launch runs on the current device
+            metrics.span("kernel.b2_pool_scan", series=False),
+        ):
             err = lib.ivf_pool_scan(
                 code,
                 vectors.data_ptr(),

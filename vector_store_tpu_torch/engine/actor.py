@@ -20,12 +20,14 @@ sender ends the mailbox loop).
 from __future__ import annotations
 
 import asyncio
+import time
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
 import numpy as np
 
 from ..types import Limit, PrimaryKey
+from ..utils import metrics
 
 # Mailbox capacity, "taken from initial benchmarks" in the reference
 # (src/index/usearch.rs:101-103).
@@ -101,6 +103,9 @@ class Ann:
     embedding: np.ndarray
     limit: Limit
     reply: asyncio.Future = field(default=None)  # type: ignore[assignment]
+    # when it was made, just before its send: the backend observes the
+    # mailbox wait from it
+    sent_ns: int = field(default_factory=time.perf_counter_ns)
 
 
 @dataclass
@@ -225,6 +230,9 @@ def spawn_index_actor(process, name: str = "index") -> IndexHandle:
     one step, not ten (the rayon-offload role, usearch.rs:115-118, played
     by batching instead of threads).  Order across message types is
     preserved: only *consecutive* same-type runs may merge.
+
+    `vst_actor_messages_total{actor}` over `vst_actor_turns_total{actor}`
+    is the mailbox depth a turn drains.
     """
     import logging
 
@@ -234,6 +242,8 @@ def spawn_index_actor(process, name: str = "index") -> IndexHandle:
     async def loop() -> None:
         closing = False
         coalesce = getattr(process, "coalesce", None)
+        turns = metrics.counter("vst_actor_turns_total", actor=name)
+        messages = metrics.counter("vst_actor_messages_total", actor=name)
         while not closing:
             msg = await queue.get()
             if msg is _CLOSE:
@@ -249,6 +259,9 @@ def spawn_index_actor(process, name: str = "index") -> IndexHandle:
                         closing = True
                         break
                     batch.append(nxt)
+            turns.inc()
+            messages.inc(len(batch))
+            if coalesce is not None:
                 batch = coalesce(batch)
             for m in batch:
                 try:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -122,58 +123,71 @@ class AnnIndexBackend:
     # -- device-side batch execution (worker thread) ----------------------
 
     def _run_query_batch(self, items: list) -> list:
-        """items: [(embedding, k)] -> [(keys, distances)] per item."""
-        k_max = max(k for _, k in items)
-        queries = np.stack([e for e, _ in items])
+        """items: [(embedding, k, mailbox wait ns)] -> [(keys, distances)]
+        per item."""
+        metrics.histogram("vst_actor_mailbox_wait_seconds").observe_many(
+            [w * 1e-9 for _, _, w in items]
+        )
+        k_max = max(k for _, k, _ in items)
+        queries = np.stack([e for e, _, _ in items])
         metrics.counter("vst_ann_queries_total", index=str(self.index_id)).inc(
             len(items)
         )
         # the lock covers the enqueue and the keymap snapshot only; the
         # readback (fetch) runs outside it, so several flush threads keep
         # device batches in flight
-        with self._serve_lock:
-            with metrics.timed("vst_ann_batch_seconds", backend=type(self.index).__name__):
+        with metrics.span("vst_ann_lock_wait_seconds"):
+            self._serve_lock.acquire()
+        try:
+            with metrics.span("vst_ann_batch_seconds", backend=type(self.index).__name__):
                 if hasattr(self.index, "search_dispatch"):
                     fetch = self.index.search_dispatch(queries, k_max)
                 else:  # sharded backends search whole under the lock
                     res = self.index.search(queries, k_max)
                     fetch = lambda: res  # noqa: E731
                 keymap = self.keymap
-        dist, slots = fetch()
-        out = []
-        for j, (_, k) in enumerate(items):
-            keys, dists = [], []
-            for s, d in zip(slots[j][:k], dist[j][:k]):
-                if s < 0:
-                    continue
-                key = keymap.key_of(int(s))
-                if key is None:
-                    continue  # slot tombstoned between search and mapping
-                keys.append(key)
-                dists.append(float(d))
-            out.append((keys, dists))
+        finally:
+            self._serve_lock.release()
+        with metrics.span("vst_ann_fetch_seconds"):
+            dist, slots = fetch()
+        with metrics.span("vst_ann_keymap_seconds"):
+            out = []
+            for j, (_, k, _) in enumerate(items):
+                keys, dists = [], []
+                for s, d in zip(slots[j][:k], dist[j][:k]):
+                    if s < 0:
+                        continue
+                    key = keymap.key_of(int(s))
+                    if key is None:
+                        continue  # slot tombstoned between search and mapping
+                    keys.append(key)
+                    dists.append(float(d))
+                out.append((keys, dists))
         return out
 
     def _apply_upserts(self, batch: list[tuple[PrimaryKey, np.ndarray]]) -> None:
-        for key, _ in batch:
-            # a bad key must fail before the insert, or it leaves a row
-            # that count() sees and no lookup can reach
-            try:
-                hash(key)
-            except TypeError as exc:
-                raise ValueError(f"unusable primary key {key!r}: {exc}") from exc
-        vecs = np.stack([v for _, v in batch])
-        metrics.counter("vst_ann_upserts_total", index=str(self.index_id)).inc(
-            len(batch)
-        )
-        slots = self.index.add(vecs)
-        dead = []
-        for (key, _), slot in zip(batch, slots):
-            old = self.keymap.bind(key, int(slot))
-            if old is not None:
-                dead.append(old)
-        if dead:
-            self.index.remove(np.asarray(dead, dtype=np.int64))
+        with metrics.span("vst_engine_apply_upserts_seconds"):
+            for key, _ in batch:
+                # a bad key must fail before the insert, or it leaves a row
+                # that count() sees and no lookup can reach
+                try:
+                    hash(key)
+                except TypeError as exc:
+                    raise ValueError(f"unusable primary key {key!r}: {exc}") from exc
+            vecs = np.stack([v for _, v in batch])
+            metrics.counter("vst_ann_upserts_total", index=str(self.index_id)).inc(
+                len(batch)
+            )
+            with metrics.span("vst_index_add_seconds", backend=type(self.index).__name__):
+                slots = self.index.add(vecs)
+            with metrics.span("vst_engine_keymap_bind_seconds"):
+                dead = []
+                for (key, _), slot in zip(batch, slots):
+                    old = self.keymap.bind(key, int(slot))
+                    if old is not None:
+                        dead.append(old)
+                if dead:
+                    self.index.remove(np.asarray(dead, dtype=np.int64))
 
     # -- actor message handling ------------------------------------------
 
@@ -259,11 +273,12 @@ class AnnIndexBackend:
         elif isinstance(msg, _RemoveRun):
             await self._apply_remove_run(msg)
         elif isinstance(msg, Ann):
+            waited_ns = time.perf_counter_ns() - msg.sent_ns
             emb = self._check_dims(msg.embedding)
             # detach, so the actor loop keeps draining and the batcher can
             # coalesce concurrent queries
             task = self._loop.create_task(
-                self._answer_ann(emb, msg), name=f"ann-{self.index_id}"
+                self._answer_ann(emb, msg, waited_ns), name=f"ann-{self.index_id}"
             )
             self._inflight.add(task)
             task.add_done_callback(self._inflight.discard)
@@ -298,9 +313,9 @@ class AnnIndexBackend:
             self.index.compact_install(scratch)
             self.keymap = new_keymap
 
-    async def _answer_ann(self, emb: np.ndarray, msg: Ann) -> None:
+    async def _answer_ann(self, emb: np.ndarray, msg: Ann, waited_ns: int) -> None:
         try:
-            res = await self._batcher.submit((emb, msg.limit.value))
+            res = await self._batcher.submit((emb, msg.limit.value, waited_ns))
             if not msg.reply.done():
                 msg.reply.set_result(res)
         except Exception as exc:  # noqa: BLE001 -- route to the caller

@@ -10,18 +10,29 @@ standard scraper works — no client-library dependency.
 Usage:
     from vector_store_tpu_torch.utils import metrics
     metrics.counter("vst_http_requests_total", route="/ann", status="200").inc()
-    with metrics.timed("vst_search_seconds", backend="ivf"):
+    with metrics.span("vst_search_seconds", backend="ivf"):
         ...
+
+A span times the host on the monotonic clock and observes the histogram of
+its name.  While a torch.profiler runs it is also a `record_function` range
+of that name, so it lies on the profiler's timeline beside the device's
+operations and nests as the calls do (engine -> index -> kernel wrapper);
+with no profiler running that costs one flag read.  `span(name, series=False)`
+marks the trace only.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
 import time
-from contextlib import contextmanager
 
-# log-spaced latency buckets (seconds): 1ms .. ~16s, the serving range
-BUCKETS = tuple(0.001 * 2**i for i in range(15))
+from torch.autograd import profiler as _torch_profiler
+
+# log-spaced latency buckets (seconds): ~1us .. ~16s; the bounds from 1 ms up
+# are the serving range's, the finer ones below it hold a lock wait or an
+# enqueue
+BUCKETS = tuple(0.001 * 2**i for i in range(-10, 15))
 
 _lock = threading.Lock()
 _counters: dict[tuple[str, tuple], float] = {}
@@ -50,16 +61,19 @@ class _Histogram:
         self._k = k
 
     def observe(self, seconds: float) -> None:
+        self.observe_many((seconds,))
+
+    def observe_many(self, values) -> None:
+        """One observation per value, under one lock."""
         with _lock:
             h = _hists.get(self._k)
             if h is None:
                 h = _hists[self._k] = [[0] * (len(BUCKETS) + 1), 0.0, 0]
-            i = 0
-            while i < len(BUCKETS) and seconds > BUCKETS[i]:
-                i += 1
-            h[0][i] += 1
-            h[1] += seconds
-            h[2] += 1
+            counts = h[0]
+            for seconds in values:
+                counts[bisect.bisect_left(BUCKETS, seconds)] += 1
+                h[1] += seconds
+                h[2] += 1
 
 
 def counter(name: str, **labels) -> _Counter:
@@ -70,13 +84,35 @@ def histogram(name: str, **labels) -> _Histogram:
     return _Histogram(_key(name, labels))
 
 
-@contextmanager
-def timed(name: str, **labels):
-    t0 = time.time()
-    try:
-        yield
-    finally:
-        histogram(name, **labels).observe(time.time() - t0)
+class span:
+    """Context manager: the seconds of its body observed into the histogram
+    `name` with `labels` (none with `series=False`), and a profiler range
+    `name` while a torch.profiler runs.  `with span(...) as labels` hands
+    back the labels, which the body may still change (a label known only
+    at the end)."""
+
+    __slots__ = ("_name", "_labels", "_series", "_range", "_t0")
+
+    def __init__(self, name: str, series: bool = True, **labels) -> None:
+        self._name = name
+        self._series = series
+        self._labels = labels
+        self._range = None
+
+    def __enter__(self) -> dict:
+        if _torch_profiler._is_profiler_enabled:
+            self._range = _torch_profiler.record_function(self._name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self._labels
+
+    def __exit__(self, *exc) -> None:
+        took = (time.perf_counter_ns() - self._t0) * 1e-9
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        if self._series:
+            histogram(self._name, **self._labels).observe(took)
 
 
 def _esc(v) -> str:
