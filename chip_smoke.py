@@ -41,7 +41,11 @@ parallel), then:
      the expand entry (adjacency read and score in one launch) with dead
      beams, SENTINEL-padded adjacency rows and repeated nodes; ids equal,
      INF where the plain version has INF; times both (cold L2, in turns)
-     beside their bounds;
+     beside their bounds; holds the insert's prune kernel against its plain
+     version bit for bit, distances and ids, on the cases of PRUNE_CASES
+     (the insert and refine shapes, dot with negative distances, l2,
+     C = 1,024, C not a multiple of 32, all-INF nodes, an unsorted pool,
+     R > C), one launch a call;
   5. serves a kind-"ann" (graph) index over HTTP: the route's default
      dtype (bf16), cosine, capacity 131,072; bulk-loads 131,072 rows of the
      bench corpus recipe through the engine handle plus 256 through
@@ -131,7 +135,11 @@ parallel), then:
      id outside the live rows; B3's launches of the build and of one
      search; a search round and an insert round captured at the 1M
      frontier, B3's two entries held against their plain versions on them
-     and timed (cold L2) beside their bounds; peak device memory;
+     and timed (cold L2) beside their bounds; peak device memory; the prune
+     kernel's launches (one an insert block), then one 256-row insert block
+     at that frontier with the prune kernel and with its plain version:
+     device operations a block, wall ms a block, and the kernel on that
+     block's own inputs, bit-equal, timed beside its byte bound;
  15. the soaks on the card, in this process: engine_soak (HTTP clients
      storm serve() for 30 s), fuzz_soak (the model oracle over the four
      backends for 30 s, the sharded ones on four logical shards) and
@@ -1123,6 +1131,185 @@ def phase_graph_kernels(torch, device="cuda", C=2 * N_GRAPH, D=DIM, shapes=None)
     if device == "cuda":
         torch.cuda.empty_cache()
     return err, timing
+
+
+# the robust prune's cases, held bit for bit against its plain version in
+# phase 4 and by tests/test_torch_prune_cuda.py: name -> (space, nodes M,
+# candidates C, R, n_keep_nearest, what else)
+PRUNE_CASES = {
+    "insert": ("cosine", 256, 128, 32, 16, ""),  # insert_impl's block at the defaults
+    "refine": ("cosine", 256, 1056, 32, 16, "sparse"),  # R + R^2 (ef_add >= 1,056), deduplicated
+    "dot": ("dot", 256, 128, 32, 16, ""),  # negative distances: the shift
+    "l2": ("l2", 256, 128, 32, 16, ""),
+    "c1024": ("cosine", 64, 1024, 64, 32, ""),
+    "c77": ("l2", 64, 77, 12, 0, ""),  # C not a multiple of 32, no plain-nearest edges
+    "all_inf": ("cosine", 64, 128, 32, 16, "all_inf"),  # every other node has no candidate
+    "unsorted": ("dot", 64, 128, 32, 16, "unsorted"),  # the kernel ranks its kept list
+    "narrow": ("cosine", 64, 20, 32, 16, ""),  # R > C: the output is C wide
+}
+
+
+def prune_case(torch, name, device):
+    """The arguments of one robust_prune call, (pd, cand_dist, cand_ids,
+    shift, alpha, R, n_keep), for PRUNE_CASES[name]: per node a unit query
+    and C candidate rows near it along 4 directions, rounded to bf16 as an
+    insert block's rows are (in the dot space scaled by 0.5-1.5), every 16th
+    a repeat of the one before it (tied distances), the pool sorted by
+    distance as both callers sort it, and an INF tail (SENTINEL ids) on
+    every 4th node ("sparse": every node, a quarter to three quarters of
+    its pool)."""
+    from vector_store_tpu_torch.core import build
+    from vector_store_tpu_torch.core.distance import normalize
+    from vector_store_tpu_torch.core.topk import INF, SENTINEL
+
+    space, M, C, R, keep, how = PRUNE_CASES[name]
+    gen = torch.Generator(device=device).manual_seed(SEED + 20 + list(PRUNE_CASES).index(name))
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    q = normalize(torch.randn((M, DIM), generator=gen, device=device))
+    # each node's candidates lie along 4 directions from it, so that kept
+    # candidates remove others, with noise
+    dirs = normalize(torch.randn((M, 4, DIM), generator=gen, device=device))
+    pick = torch.randint(0, 4, (M, C), generator=gen, device=device)
+    noise = torch.randn((M, C, DIM), generator=gen, device=device)
+    along = torch.gather(dirs, 1, pick[..., None].expand(-1, -1, DIM))
+    x = q[:, None, :] + (rand(M, C, 1) + 0.2) * along
+    x = normalize(x + noise * (0.3 / DIM**0.5))
+    x = x.to(torch.bfloat16).float()
+    if space == "dot":
+        x = x * (rand(M, C, 1) + 0.5)
+    x[:, 1::16] = x[:, 0::16][:, : x[:, 1::16].shape[1]]
+    dots = torch.einsum("mcd,md->mc", x, q)
+    dist = {"cosine": 1.0 - dots, "dot": -dots,
+            "l2": 1.0 + torch.sum(x * x, dim=-1) - 2.0 * dots}[space]
+    if how == "unsorted":
+        order = torch.argsort(rand(M, C), dim=1)
+    else:
+        order = torch.sort(dist, dim=1, stable=True).indices
+    dist = torch.gather(dist, 1, order)
+    x = torch.gather(x, 1, order[..., None].expand(-1, -1, DIM))
+    ids = torch.gather(torch.arange(M * C, dtype=torch.int32, device=device).reshape(M, C), 1,
+                       order)
+    pos = torch.arange(C, device=device)[None, :]
+    if how == "all_inf":
+        dead = (torch.arange(M, device=device) % 2 == 0)[:, None].expand(M, C)
+    else:
+        lo, hi = (C // 4, 3 * C // 4) if how == "sparse" else (0, C // 2)
+        tail = (lo + rand(M) * (hi - lo)).long()
+        dead = pos >= (C - tail)[:, None]
+        if how != "sparse":
+            dead = dead & (torch.arange(M, device=device) % 4 == 1)[:, None]
+    dist = dist.masked_fill(dead, INF).contiguous()
+    ids = ids.masked_fill(dead, SENTINEL).contiguous()
+    pd = build._pairwise_batched(x, space)
+    del x, noise, dirs, along
+    shift = build._dot_shift(pd, dist) if space == "dot" else None
+    return pd, dist, ids, shift, 1.2, R, keep
+
+
+def prune_check(torch, device, names=None) -> int:
+    """The prune kernel against its plain version on the cases of
+    PRUNE_CASES (all, or `names`): distances and ids equal bit for bit, one
+    launch a call on the card.  Returns the number of cases held."""
+    from vector_store_tpu_torch.core import graph_cuda as gc
+    from vector_store_tpu_torch.core.topk import SENTINEL
+
+    names = names or list(PRUNE_CASES)
+    for name in names:
+        args = prune_case(torch, name, device)
+        before = gc.LAUNCHES["robust_prune"]
+        d_k, i_k = gc.robust_prune(*args)
+        d_p, i_p = gc.robust_prune_plain(*args)
+        _sync(torch, device)
+        launched = gc.LAUNCHES["robust_prune"] - before
+        same = (d_k.shape == d_p.shape and torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+                and torch.equal(i_k, i_p))
+        space, M, C, R, keep, _ = PRUNE_CASES[name]
+        log(f"  prune {name:8s} ({space}, M {M}, C {C}, R {R}, keep {keep}): "
+            f"{int((i_p != SENTINEL).sum())} edges kept, {'bit-equal' if same else 'DIFFERENT'}, "
+            f"{launched} launch(es)")
+        if not same:
+            raise AssertionError(f"the prune kernel differs from its plain version ({name})")
+        if launched != int(device == "cuda"):
+            raise AssertionError(f"prune {name}: {launched} launches")
+        del args, d_k, i_k, d_p, i_p
+    return len(names)
+
+
+def prune_at_frontier(torch, idx, rows) -> dict:
+    """One 256-row insert block into SlotIndex idx, with the prune kernel
+    and with its plain version: device operations a block (torch.profiler),
+    wall ms a block (4 blocks an add, synchronised; kernel, plain, plain,
+    kernel), and the kernel on one block's own inputs: bit-equal to the
+    plain version, its time (warm: the bmm before it leaves pd in L2) beside
+    its bound, the bytes it needs (cand_dist and cand_ids, the columns past
+    each kept candidate of its pd row, the output) over HBM_BYTES_S.  `rows`
+    holds at least 2,304 rows; the index takes them all."""
+    from vector_store_tpu_torch.core import graph_cuda as gc
+    from vector_store_tpu_torch.core.topk import INF
+
+    kernel = gc.robust_prune
+    saved = idx.insert_block
+    idx.insert_block = 256
+    out = {}
+    try:
+        for label, fn in (("kernel", kernel), ("plain", gc.robust_prune_plain)):
+            gc.robust_prune = fn
+            out[f"ops_{label}"] = _count_kernels(torch, lambda: idx.add(rows[:256]))
+        walls = {"kernel": [], "plain": []}
+        for i, label in enumerate(("kernel", "plain", "plain", "kernel")):
+            gc.robust_prune = kernel if label == "kernel" else gc.robust_prune_plain
+            block = rows[256 + i * 512 : 256 + (i + 1) * 512]
+            block = np.concatenate([block, block])  # 4 blocks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx.add(block)
+            torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - t0) * 1e3 / 4)
+        captured = []
+
+        def capture(*args):
+            captured.append(args)
+            return kernel(*args)
+
+        gc.robust_prune = capture
+        idx.add(rows[:256])
+    finally:
+        gc.robust_prune = kernel
+        idx.insert_block = saved
+    args = captured[0]
+    pd, cd, ids = args[:3]
+    d_k, i_k = gc.robust_prune(*args)
+    d_p, i_p = gc.robust_prune_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)) and torch.equal(i_k, i_p)):
+        raise AssertionError("the prune kernel differs from its plain version at the frontier")
+    M, C = cd.shape
+    W = i_p.shape[1]
+    kept = (ids[:, :, None] == i_p[:, None, :]).any(-1) & (cd < INF)
+    # the row of a kept candidate is read past its column, but for the W-th
+    after = (C - 1 - torch.arange(C, device=cd.device))[None, :]
+    row_read = kept & (kept.cumsum(1) < W)
+    nbytes = 8 * M * C + 4 * int((after * row_read).sum()) + 8 * i_p.numel()
+    bound, by = _bound(nbytes, 0, None)
+    t = _turns(torch, {"plain": lambda: gc.robust_prune_plain(*args),
+                       "kernel": lambda: gc.robust_prune(*args)},
+               {"plain": 1, "kernel": 20}, cold=False)
+    out.update(ms=t["kernel"][0], plain_ms=t["plain"][0], bound_ms=bound, bound_by=by,
+               bytes=nbytes, kept=int(kept.sum()), shape=(M, C, W),
+               block_ms_kernel=float(np.median(walls["kernel"])),
+               block_ms_plain=float(np.median(walls["plain"])))
+    log(f"  one 256-row insert block at the {idx.frontier} frontier: {out['ops_kernel']} device "
+        f"operations with the prune kernel, {out['ops_plain']} with its plain version "
+        f"({out['ops_plain'] - out['ops_kernel']} fewer); wall "
+        f"{out['block_ms_kernel']:.2f} ms a block against {out['block_ms_plain']:.2f} "
+        f"(4 blocks an add, kernel {walls['kernel']}, plain {walls['plain']})")
+    log(f"  prune kernel on that block's inputs (M {M}, C {C}, R {W}, {out['kept']} "
+        f"kept): bit-equal; {_fmt(t['kernel'])} warm, plain {_fmt(t['plain'])}; bound "
+        f"{bound:.4f} ms ({by}, {nbytes} bytes), share {bound / t['kernel'][0]:.3f}")
+    return out
 
 
 def _sync(torch, device):
@@ -2684,7 +2871,12 @@ def phase_graph_scale(torch, n=N_SCALE, device="cuda", data=None):
     _zero(gc.LAUNCHES)
     idx, build_s, rebuilds = scale.build_graph(corpus, "bfloat16", device=device)
     out = {"add_vec_s": n / build_s, "rebuilds": rebuilds,
-           "launches_build": gc.LAUNCHES["expand_score"]}
+           "launches_build": gc.LAUNCHES["expand_score"],
+           "launches_prune_build": gc.LAUNCHES["robust_prune"]}
+    blocks = -(-n // idx.insert_block)
+    if device == "cuda" and out["launches_prune_build"] != blocks:
+        raise AssertionError(f"{blocks} insert blocks launched the prune "
+                             f"{out['launches_prune_build']} times")
     st = idx.state
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     log(f"  built {n} x {DIM} bf16 (capacity {idx.capacity}, insert blocks 1,024) in {build_s:.2f}"
@@ -2693,7 +2885,8 @@ def phase_graph_scale(torch, n=N_SCALE, device="cuda", data=None):
         f"{st.vectors.numel() * st.vectors.element_size() / 1e9:.3f} GB, adjacency "
         f"{st.neighbors.numel() * 4 / 1e9:.3f} GB; peak device memory {peak / 2**30:.2f} GiB, "
         f"{(peak - held) / 2**30:.2f} GiB above what earlier phases still hold; B3 launches "
-        f"{out['launches_build']}")
+        f"{out['launches_build']}, prune launches {out['launches_prune_build']} ({blocks} insert "
+        f"blocks)")
     if not rebuilds or rebuilds[0][0] < index_mod.ROUTE_MIN_ROWS or idx.cfg.route_k == 0:
         raise AssertionError(f"the add path built no router: {rebuilds}")
 
@@ -2757,6 +2950,8 @@ def phase_graph_scale(torch, n=N_SCALE, device="cuda", data=None):
     log(f"  B3 launches: build {out['launches_build']}, the rungs' searches "
         f"{out['launches_search']}, one search of 256 queries {out['launches_one_search']} = "
         f"{idx.cfg.search_iters} rounds")
+    if device == "cuda":
+        out["prune"] = prune_at_frontier(torch, idx, make_extra(corpus, 2304, seed=SEED + 8))
     del idx, st
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -2910,8 +3105,11 @@ def main() -> int:
     svc, geo = asyncio.run(phase_service(torch, n))
     torch.cuda.empty_cache()
 
-    log("phase 4: graph kernel B3 vs plain PyTorch at serving shapes")
+    log("phase 4: graph kernel B3 vs plain PyTorch at serving shapes; the prune kernel vs its "
+        "plain version")
     b3_err, b3_timing = phase_graph_kernels(torch)
+    prune_cases = prune_check(torch, "cuda")
+    torch.cuda.empty_cache()
 
     log(f"phase 5: graph (kind ann) service at N={N_GRAPH}")
     gsvc = asyncio.run(phase_graph_service(torch))
@@ -3109,8 +3307,30 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    prune = gscale["prune"]
+    kernels.append({
+        # times: one 256-row insert block's own inputs at the 1M frontier,
+        # warm (pd in L2 as the bmm before it leaves it), median of turns
+        "name": "graph_robust_prune",
+        "route": "cuda",
+        "source": src + "graph_prune.cu",
+        "replaces": "vector_store_tpu/core/build.py:61 (a lax.scan, no Pallas kernel)",
+        "launches": gscale["launches_prune_build"],
+        "cases_bit_equal": prune_cases,
+        "max_abs_err": 0.0,
+        "ms": prune["ms"],
+        "plain_ms": prune["plain_ms"],
+        "bound_ms": prune["bound_ms"],
+        "bound_by": prune["bound_by"],
+        "library_ms": None,
+        "ops_per_block": prune["ops_kernel"],
+        "ops_per_block_plain": prune["ops_plain"],
+        "block_ms": prune["block_ms_kernel"],
+        "block_ms_plain": prune["block_ms_plain"],
+    })
     for kern in kernels:
         kern["library_note"] = no_library
+    kernels[-1]["library_note"] = "no single PyTorch call: a scan whose every step reads the last"
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,6 +1,11 @@
 """The plain version of the CUDA gather-score kernel B3, and the pool-merge
 primitives around it, against the JAX package on the CPU.
 
+The insert's robust prune (`build._robust_prune`, whose plain version is
+`graph_cuda.robust_prune_plain`) is held against the JAX package's on
+dyadic rows, whose distances both packages compute exactly: kept ids and
+distances equal as sets per node (JAX's top-k may order ties otherwise).
+
 B3's plain version is held against the Pallas kernel `gather_score_fused`
 in interpret mode: f32, bf16 and int8 banks, cosine/dot/l2, candidate ids
 with repeats.  Distances agree to atol 1e-5 on unit-norm rows (float32
@@ -17,13 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+from vector_store_tpu.core import build as jbuild
 from vector_store_tpu.core import cluster as jcluster
 from vector_store_tpu.core import quantize as jquant
 from vector_store_tpu.core import topk as jtopk
+from vector_store_tpu.core.graph import GraphConfig as JGraphConfig
 from vector_store_tpu.core.graph_pallas import gather_score_fused as j_gather_score
+from vector_store_tpu_torch.core import build as tbuild
 from vector_store_tpu_torch.core import cluster as tcluster
 from vector_store_tpu_torch.core import graph_cuda
 from vector_store_tpu_torch.core import topk as ttopk
+from vector_store_tpu_torch.core.graph import GraphConfig
 from vector_store_tpu_torch.core.ivf import _from_numpy
 
 C, D, Q, BR = 512, 128, 8, 64
@@ -192,6 +201,68 @@ def test_gather_score_wrapper_counts_kernel_launches_only():
     assert graph_cuda.LAUNCHES == before
     with pytest.raises(ValueError):
         graph_cuda.expand_score_fused(tv.to("meta"), ts, nbrs, torch.zeros((2, D)), sel, live, "l2")
+
+
+def _prune_case(space, Cn, seed, M=24, Dn=16):
+    """Per node a query and Cn candidates near it, in quarters of integers
+    (every product and sum exact in f32), every 8th a repeat of the one
+    before it (tied distances), sorted by distance as insert_impl sorts
+    them; every 3rd node has an INF tail (SENTINEL ids), node 5 no finite
+    candidate.  Returns (cand_dist, cand_ids, cand_vecs) as numpy."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-3, 4, size=(M, 1, Dn))
+    x = (q + rng.integers(-2, 3, size=(M, Cn, Dn))) / 4.0
+    x[:, 1::8] = x[:, 0::8][:, : x[:, 1::8].shape[1]]
+    q = q / 4.0
+    dots = np.einsum("mcd,md->mc", x, q[:, 0])
+    dist = {"cosine": 1.0 - dots, "dot": -dots, "l2": np.sum((x - q) ** 2, axis=-1)}[space]
+    order = np.argsort(dist, axis=1, kind="stable")
+    dist = np.take_along_axis(dist, order, 1).astype(np.float32)
+    x = np.take_along_axis(x, order[..., None], 1).astype(np.float32)
+    ids = rng.permutation(1 << 20)[: M * Cn].reshape(M, Cn).astype(np.int32)
+    for m in range(1, M, 3):
+        tail = rng.integers(1, Cn // 2)
+        dist[m, Cn - tail :] = np.inf
+        ids[m, Cn - tail :] = SENT
+    dist[5], ids[5] = np.inf, SENT
+    return dist, ids, x
+
+
+@pytest.mark.parametrize("space", ["cosine", "dot", "l2"])
+@pytest.mark.parametrize("Cn,R", [(64, 4), (128, 32), (200, 32), (200, 4)])
+def test_robust_prune_plain_matches_jax(space, Cn, R):
+    dist, ids, x = _prune_case(space, Cn, seed=Cn * 7 + R)
+    j_d, j_i = jbuild._robust_prune(jnp.asarray(dist), jnp.asarray(ids), jnp.asarray(x),
+                                    JGraphConfig(dims=x.shape[-1], degree=R, space=space))
+    t_d, t_i = tbuild._robust_prune(torch.from_numpy(dist), torch.from_numpy(ids),
+                                    torch.from_numpy(x),
+                                    GraphConfig(dims=x.shape[-1], degree=R, space=space))
+    j_d, j_i, t_d, t_i = np.asarray(j_d), np.asarray(j_i), t_d.numpy(), t_i.numpy()
+    assert t_d.shape == t_i.shape == j_d.shape == (len(dist), R)
+    kept = 0
+    for m in range(len(dist)):
+        want = sorted(zip(j_i[m][j_i[m] != SENT].tolist(), j_d[m][j_i[m] != SENT].tolist()))
+        got = sorted(zip(t_i[m][t_i[m] != SENT].tolist(), t_d[m][t_i[m] != SENT].tolist()))
+        assert got == want, m
+        assert np.all(np.isinf(t_d[m][t_i[m] == SENT]))
+        kept += len(got)
+    assert 0 < kept < R * len(dist)  # the rule removed some candidates, and kept some
+    assert not np.any(t_i[5] != SENT)
+
+
+def test_robust_prune_wrapper_takes_the_plain_version_on_the_cpu():
+    dist, ids, x = (torch.from_numpy(a) for a in _prune_case("dot", 64, seed=11))
+    pd = tbuild._pairwise_batched(x, "dot")
+    args = (pd, dist, ids, tbuild._dot_shift(pd, dist), 1.2, 8, 4)
+    before = dict(graph_cuda.LAUNCHES)
+    got = graph_cuda.robust_prune(*args)
+    assert graph_cuda.LAUNCHES == before  # the CPU takes the plain version
+    want = graph_cuda.robust_prune_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].shape == (len(dist), 8)
+    with pytest.raises(ValueError):
+        graph_cuda.robust_prune(pd.to("meta"), *args[1:])
+    assert graph_cuda.LAUNCHES == before
 
 
 def _pool_case(seed, Qn=6, P=16, Cn=24, id_range=40):

@@ -7,8 +7,9 @@ A block of M new vectors is grafted into the graph by one step:
      and shallow, kernel B3 in every round) plus the M x M block among the
      new vectors themselves (which also bootstraps an empty graph);
   2. robust prune (DiskANN-style alpha rule) picks <= R diverse forward
-     neighbours per new node: a loop over the sorted candidate pool with
-     the candidate-pairwise distances from one batched matmul;
+     neighbours per new node: one scan of the sorted candidate pool (one
+     kernel launch on the card) with the candidate-pairwise distances from
+     one batched matmul;
   3. rows, scales, forward edges and edge lengths are written in place;
   4. reverse edges go in over REVERSE_ROUNDS rounds: edges sorted by
      (target, length) and ranked within each target, round r applying the
@@ -25,6 +26,7 @@ import dataclasses
 
 import torch
 
+from . import graph_cuda
 from .cluster import ring_assign
 from .distance import gathered, pairwise, preprocess
 from .graph import GraphConfig, GraphState, gather_vectors, store_vectors
@@ -65,39 +67,31 @@ def _robust_prune(
 
     Best first: keep c unless some kept s has alpha * d(s, c) <= d(q, c)
     (the first n_keep_nearest candidates are kept regardless); stop at R.
-    Returns (dist[M, R], ids[M, R]) padded with (+inf, SENTINEL)."""
-    M, C = cand_dist.shape
-    R = cfg.degree
+    Returns (dist[M, R], ids[M, R]) padded with (+inf, SENTINEL).  The
+    selection is one launch of the prune kernel on the card
+    (graph_cuda.robust_prune), its plain loop on the CPU."""
     pd = _pairwise_batched(cand_vecs, cfg.space)
-    pd_cmp, cd_cmp = pd, cand_dist
-    if cfg.space == "dot":
-        # dot "distances" can be negative, where alpha > 1 would tighten
-        # the rule instead of loosening it: shift both sides to >= 0 by the
-        # batch-wide minimum (the returned distances stay unshifted)
-        m = torch.minimum(
-            pd.masked_fill(~torch.isfinite(pd), INF).min(),
-            cand_dist.masked_fill(~torch.isfinite(cand_dist), INF).min(),
-        ).clamp(max=0.0)
-        pd_cmp, cd_cmp = pd - m, cand_dist - m
-    # dominated[m, t, c]: keeping candidate t removes candidate c
-    dominated = cfg.prune_alpha * pd_cmp <= cd_cmp[:, None, :]
-    finite = cand_dist < INF
-    removed = torch.zeros((M, C), dtype=torch.bool, device=cand_dist.device)
-    kept = torch.zeros((M, C), dtype=torch.bool, device=cand_dist.device)
-    kept_cnt = torch.zeros((M,), dtype=torch.int32, device=cand_dist.device)
-    for t in range(C):
-        can_keep = finite[:, t] & (kept_cnt < R)
-        if t >= cfg.n_keep_nearest:
-            can_keep &= ~removed[:, t]
-        kept[:, t] = can_keep
-        kept_cnt += can_keep
-        removed |= can_keep[:, None] & dominated[:, t, :]
+    shift = _dot_shift(pd, cand_dist) if cfg.space == "dot" else None
+    return graph_cuda.robust_prune(
+        pd,
+        cand_dist.contiguous(),
+        cand_ids.contiguous(),
+        shift,
+        cfg.prune_alpha,
+        cfg.degree,
+        cfg.n_keep_nearest,
+    )
 
-    sel_dist = cand_dist.masked_fill(~kept, INF)
-    sel_ids = cand_ids.masked_fill(~kept, SENTINEL)
-    top_d, pos = topk_ascending_stable(sel_dist, R)
-    top_i = torch.gather(sel_ids, 1, pos).masked_fill(torch.isinf(top_d), SENTINEL)
-    return top_d, top_i
+
+def _dot_shift(pd: torch.Tensor, cand_dist: torch.Tensor) -> torch.Tensor:
+    """The prune's shift in the dot space, a device scalar <= 0.  dot
+    "distances" can be negative, where alpha > 1 would tighten the rule
+    instead of loosening it: both sides are shifted to >= 0 by the
+    batch-wide minimum (the returned distances stay unshifted)."""
+    return torch.minimum(
+        pd.masked_fill(~torch.isfinite(pd), INF).min(),
+        cand_dist.masked_fill(~torch.isfinite(cand_dist), INF).min(),
+    ).clamp(max=0.0)
 
 
 def _apply_reverse_edges(

@@ -1,8 +1,9 @@
-"""Graph beam-search gather+score: the CUDA kernel B3 and its plain versions.
+"""The graph's CUDA kernels and their plain versions: B3 (beam-search
+gather+score) and the insert's robust prune.
 
-Counterpart of vector_store_tpu/core/graph_pallas.py and of the expand
-round's adjacency read around it (vector_store_tpu/core/search.py:66-98).
-One kernel template in csrc/graph_gather.cu, two entry points:
+B3 is the counterpart of vector_store_tpu/core/graph_pallas.py and of the
+expand round's adjacency read around it (vector_store_tpu/core/search.py:
+66-98).  One kernel template in csrc/graph_gather.cu, two entry points:
 
   expand_score_fused  -> graph_expand_score: the expand round's candidates
                          read through the adjacency (neighbors[sel_ids],
@@ -11,10 +12,16 @@ One kernel template in csrc/graph_gather.cu, two entry points:
   gather_score_fused  -> graph_gather_score: the candidate ids given, the
                          counterpart of graph_pallas.gather_score_fused.
 
+robust_prune -> graph_robust_prune (csrc/graph_prune.cu): the alpha-
+RobustPrune selection of core/build.py::_robust_prune, one launch an insert
+or refine block, where the JAX package runs a lax.scan
+(vector_store_tpu/core/build.py:61-123) and no Pallas kernel.
+
 Each wrapper chooses by the device of the tensors it is given: CPU tensors
 go to the plain PyTorch version beside it, CUDA tensors launch the kernel
 (or raise).  LAUNCHES counts kernel launches only, by entry point; while a
-torch.profiler runs, each launch is also a range kernel.b3_<entry point>.
+torch.profiler runs, each launch is also a range kernel.b3_<entry point>
+(kernel.robust_prune for the prune).
 """
 
 from __future__ import annotations
@@ -23,12 +30,15 @@ import torch
 
 from ..utils import metrics
 from .ivf_cuda import _DTYPES, _SPACES, _check_launch
-from .topk import INF, SENTINEL
+from .topk import INF, SENTINEL, topk_ascending_stable
 
-LAUNCHES = {"gather_score": 0, "expand_score": 0}
+LAUNCHES = {"gather_score": 0, "expand_score": 0, "robust_prune": 0}
 
 # the plain version gathers [q, BR, D] f32 rows; bound that transient
 _PLAIN_BYTES = 1 << 29
+# the prune kernel holds a node's candidates in shared memory (at most 13
+# bytes each, csrc/graph_prune.cu), which bounds the candidates a node
+PRUNE_MAX_CANDIDATES = 16384
 
 
 def gather_score_plain(
@@ -226,3 +236,99 @@ def gather_score_fused(
     _check_launch("graph_gather_score", err)
     LAUNCHES["gather_score"] += 1
     return out
+
+
+def robust_prune_plain(
+    pd: torch.Tensor,  # [M, C, C] f32 candidate-pairwise distances
+    cand_dist: torch.Tensor,  # [M, C] f32 query -> candidate distances
+    cand_ids: torch.Tensor,  # [M, C] int32
+    shift: torch.Tensor | None,  # f32 scalar subtracted from both sides, or None
+    alpha: float,
+    R: int,
+    n_keep: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """alpha-RobustPrune in plain torch: a loop over the candidates in order.
+    Keep t unless some kept s has alpha * d(s, t) <= d(q, t) (the first
+    n_keep candidates are kept regardless); stop at R.  Returns (dist, ids)
+    [M, min(R, C)], the kept candidates by ascending distance, padded with
+    (+inf, SENTINEL)."""
+    M, C = cand_dist.shape
+    pd_cmp, cd_cmp = (pd, cand_dist) if shift is None else (pd - shift, cand_dist - shift)
+    # dominated[m, t, c]: keeping candidate t removes candidate c
+    dominated = alpha * pd_cmp <= cd_cmp[:, None, :]
+    finite = cand_dist < INF
+    removed = torch.zeros((M, C), dtype=torch.bool, device=cand_dist.device)
+    kept = torch.zeros((M, C), dtype=torch.bool, device=cand_dist.device)
+    kept_cnt = torch.zeros((M,), dtype=torch.int32, device=cand_dist.device)
+    for t in range(C):
+        can_keep = finite[:, t] & (kept_cnt < R)
+        if t >= n_keep:
+            can_keep &= ~removed[:, t]
+        kept[:, t] = can_keep
+        kept_cnt += can_keep
+        removed |= can_keep[:, None] & dominated[:, t, :]
+
+    sel_dist = cand_dist.masked_fill(~kept, INF)
+    sel_ids = cand_ids.masked_fill(~kept, SENTINEL)
+    top_d, pos = topk_ascending_stable(sel_dist, R)
+    top_i = torch.gather(sel_ids, 1, pos).masked_fill(torch.isinf(top_d), SENTINEL)
+    return top_d, top_i
+
+
+def robust_prune(
+    pd: torch.Tensor,  # [M, C, C] f32
+    cand_dist: torch.Tensor,  # [M, C] f32
+    cand_ids: torch.Tensor,  # [M, C] int32
+    shift: torch.Tensor | None,  # f32 scalar on the same device, or None
+    alpha: float,
+    R: int,
+    n_keep: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """robust_prune_plain's result in one launch: (dist [M, min(R, C)] f32,
+    ids [M, min(R, C)] int32), equal bit for bit.  The shift stays on the
+    device: no host synchronisation."""
+    if pd.device.type == "cpu":
+        return robust_prune_plain(pd, cand_dist, cand_ids, shift, alpha, R, n_keep)
+    dev = pd.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, C = cand_dist.shape
+    if R < 0 or C > PRUNE_MAX_CANDIDATES:
+        raise ValueError(f"the prune takes R >= 0 and at most {PRUNE_MAX_CANDIDATES} "
+                         f"candidates, got R {R}, C {C}")
+    W = min(R, C)
+    _check(
+        dev,
+        ("pd", pd, torch.float32, (M, C, C)),
+        ("cand_dist", cand_dist, torch.float32, (M, C)),
+        ("cand_ids", cand_ids, torch.int32, (M, C)),
+    )
+    if shift is not None:
+        _check(dev, ("shift", shift, torch.float32, ()))
+    out_d = torch.empty((M, W), dtype=torch.float32, device=dev)
+    out_i = torch.empty((M, W), dtype=torch.int32, device=dev)
+    if M == 0 or W == 0:
+        return out_d, out_i
+    from ..kernels.build import load_library
+
+    with (
+        torch.cuda.device(dev),  # the launch runs on the current device
+        metrics.span("kernel.robust_prune", series=False),
+    ):
+        err = load_library().graph_robust_prune(
+            pd.data_ptr(),
+            cand_dist.data_ptr(),
+            cand_ids.data_ptr(),
+            None if shift is None else shift.data_ptr(),
+            alpha,
+            M,
+            C,
+            W,
+            min(n_keep, C),
+            out_d.data_ptr(),
+            out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch("graph_robust_prune", err)
+    LAUNCHES["robust_prune"] += 1
+    return out_d, out_i

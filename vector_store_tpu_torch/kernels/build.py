@@ -42,6 +42,7 @@ build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # dtype, score, vectors, scales, rowid, queries, cids, nsb,
     # Q, B, D, p, k, space, scaled, vec, ws, out_d, out_r, stream
@@ -57,6 +58,8 @@ _SIGNATURES = {
     # dtype, vectors, scales, queries, neighbors, sel_ids, sel_live,
     # Q, B, R, C, D, space, scaled, vec, out_ids, out, stream
     "graph_expand_score": [_I] + [_P] * 6 + [_I] * 8 + [_P] * 3,
+    # pd, cand_dist, cand_ids, shift, alpha, M, C, W, n_keep, out_d, out_i, stream
+    "graph_robust_prune": [_P] * 4 + [_F] + [_I] * 4 + [_P] * 3,
     # q, bank, nblocks, B, D, score, nbuf, acc, stream
     "copy_probe_stream": [_P] * 2 + [_I] * 5 + [_P] * 2,
 }
