@@ -7,6 +7,10 @@ Run one cell with
 from the root of a checkout.  BENCHMARK.json names the cells; each cell's
 configuration, traffic mix and per-layer metrics are files of their own
 under vsbench/configs, vsbench/traffic and vsbench/metrics, found by name.
-Nothing here imports jax or the JAX package; the reference
-(vsbench/references) imports nothing of the port either.
+A configuration names the rest of what its runs need, each a module found
+by name: its driver (vsbench/drivers, the system under test), its corpus
+(vsbench/corpora, the items and the query pool made from the seed) and its
+reference (vsbench/references, the exact top-k and the numbers compared
+that are its own).  Nothing here imports jax or the JAX package; the
+corpora and the references import nothing of the port either.
 """

@@ -1,16 +1,18 @@
-"""The rows and the query pool of a cell, made from the seed.
+"""Float rows and a query pool of noisy rows, made from the seed.
 
 The bench corpus recipe (the repository's `make_dataset`, here on a torch
-Generator so that the rows are made on the card):
+Generator so that the rows are made on the card), sized by the
+configuration's "rows", "index.dimensions" and "data" and the traffic's
+"pool" and "query_noise":
 
   * rows: n rows around max(n // rows_per_centre, 16) standard-normal
     centres, each row its centre plus `sigma` times a standard-normal draw;
-  * queries: `pool` distinct rows plus `noise` times a standard-normal draw,
-    from a second generator, so the pool does not depend on how the rows
-    were made.
+  * queries: `pool` distinct rows plus `query_noise` times a standard-normal
+    draw, from a second generator, so the pool does not depend on how the
+    rows were made.
 
 The same seed on the same device gives the same numbers, whichever side
-(the harness or the reference) asks for them.  Nothing is written to disk.
+(the driver or the reference) asks for them.  Nothing is written to disk.
 """
 
 from __future__ import annotations
@@ -28,6 +30,12 @@ def _generator(seed: int, stream: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed((int(seed) * _MIX + stream) % (1 << 64))
     return g
+
+
+def _sizes(config: dict, traffic: dict) -> tuple[dict, int, int, int, float]:
+    """(recipe, rows, dimensions, pool, query noise) of a cell."""
+    return (config["data"], int(config["rows"]), int(config["index"]["dimensions"]),
+            int(traffic["pool"]), float(traffic["query_noise"]))
 
 
 def row_chunks(recipe: dict, n: int, d: int, seed: int, device):
@@ -72,3 +80,21 @@ def pool_from(src: torch.Tensor, noise: torch.Tensor, scale: float) -> torch.Ten
     """[pool, d] f32 queries: the source rows `src` [pool, d] plus `scale` x
     noise."""
     return src + scale * noise
+
+
+def for_driver(config: dict, traffic: dict, seed: int, device) -> tuple[np.ndarray, np.ndarray]:
+    """(rows [n, d] f32, queries [pool, d] f32) as host arrays, made on
+    `device`: what the driver loads and what the clients send."""
+    recipe, n, d, pool, noise_scale = _sizes(config, traffic)
+    rows = rows_to_host(recipe, n, d, seed, device)
+    idx, noise = pool_draw(n, d, pool, seed, device)
+    src = torch.as_tensor(rows[idx.cpu().numpy()], device=device)
+    return rows, pool_from(src, noise, noise_scale).cpu().numpy()
+
+
+def for_reference(config: dict, traffic: dict, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same rows and queries as f32 tensors on `device`."""
+    recipe, n, d, pool, noise_scale = _sizes(config, traffic)
+    rows = rows_on(recipe, n, d, seed, device)
+    idx, noise = pool_draw(n, d, pool, seed, device)
+    return rows, pool_from(rows[idx], noise, noise_scale)

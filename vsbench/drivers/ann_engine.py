@@ -22,6 +22,10 @@ import time
 import numpy as np
 
 INDEX = ("bench", "rows")
+# the program's counters of query batches (engine/ann_index.py), which the
+# harness reads over the window: queries, batches, and the batches' seconds
+BATCH_COUNTERS = {"queries": "vst_ann_queries_total", "batches": "vst_ann_batch_seconds_count",
+                  "seconds": "vst_ann_batch_seconds_sum"}
 _LINE = re.compile(r"^([A-Za-z_:][A-Za-z0-9_:]*)(\{[^}]*\})? (\S+)$")
 
 

@@ -1,21 +1,32 @@
-"""The comparison that decides `correct`, and the window's recall.
+"""The comparison that decides `correct`, and the window's recall: what
+holds for any top-k search.
 
-Set-up loads the rows; `missing_rows` is how many of them the index's
-own count lacks once the load was applied (every row is a write that has
+Set-up loads the items; `missing_rows` is how many of them the system's
+own count lacks once the load was applied (every item is a write that has
 to be there).  Every request sent in the window is judged once the window
-has closed.
-Its answer is due: one that never came, came as an error, or is malformed
-(not k distinct keys naming rows, or a distance that is not finite) is a
-bad answer.  Of the others the reference says:
+has closed.  Its answer is due: one that never came, came as an error, or
+is malformed (the driver's `answer_rows` says which) is a bad answer, and
+so is one whose keys lack the scores that the configuration's reference
+needs.  Of the others:
 
-  dist_gap    the widest gap, over every key of every answer, between the
-              distance the program returned and the reference's float32
-              distance from the query to the row the key names: it fails
-              a wrong key (the engine's key mapping) and a wrong score
-              (the kernels);
-  miss_share  1 - recall: the share of the exact top-k that the answers
-              missed, over all answers: it fails an index that searches
-              the wrong part of the rows (routing, the beam).
+  miss_share  1 - recall: recall is the mean, over the answers whose exact
+              top-k holds at least one item, of the share of those items
+              the answer named; a -1 pad of the exact list (fewer than k
+              items qualify) is neither found nor missed.  It fails an
+              index that searches the wrong part of the items (routing,
+              the beam).
+
+The configuration's reference (vsbench/references/<name>.py) gives the
+exact top-k and the numbers compared that are its own.  A reference module
+has
+
+    SCORES                          True where its numbers read the score
+                                    of every answered key
+    exact(items, pool, k)           [pool, k] item ids of every query's
+                                    exact top-k, best first, padded with -1
+    compared(items, pool, judged, exact)
+                                    {name: value} of its own numbers over
+                                    the judged answers
 
 The configuration's "limits" object holds the limit of each number
 compared; `correct` holds where every one is at or below its limit.
@@ -26,60 +37,65 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# answers compared a block at a time: [block, k, k] booleans
+BLOCK = 65_536
+
 
 class Judged:
     """The window's good answers as arrays: answer i was to pool query
-    qidx[i] and named rows[i] at distances dists[i]; `bad` counts the
-    requests left out (no answer, an error, or a malformed one)."""
+    qidx[i] and named the items ids[i] (padded with -1) with the scores
+    scores[i] (NaN where none was given); `bad` counts the requests left
+    out (no answer, an error, a malformed one, or one without the scores
+    the reference needs)."""
 
-    def __init__(self, qidx, rows, dists, bad: int) -> None:
+    def __init__(self, qidx, ids, scores, bad: int) -> None:
         self.qidx = qidx
-        self.rows = rows
-        self.dists = dists
+        self.ids = ids
+        self.scores = scores
         self.bad = bad
 
 
-def collect(records) -> Judged:
+def collect(records, scores: bool) -> Judged:
     """Arrays of the answered requests of `records` (loop.Records); every
-    other request is a bad answer."""
+    other request is a bad answer, as is one where `scores` is asked for
+    and a named item has none."""
     k = records.k
-    state = np.frombuffer(records.state, dtype=np.int8)
-    ok = state == records.ANSWERED
-    rows = np.frombuffer(records.rows, dtype=np.int64).reshape(-1, k)[ok]
-    dists = np.frombuffer(records.dists, dtype=np.float32).reshape(-1, k)[ok]
+    ok = np.frombuffer(records.state, dtype=np.int8) == records.ANSWERED
+    ids = np.frombuffer(records.ids, dtype=np.int64).reshape(-1, k)
+    given = np.frombuffer(records.scores, dtype=np.float32).reshape(-1, k)
+    if scores:
+        ok &= ~(np.isnan(given) & (ids >= 0)).any(axis=1)
     qidx = np.frombuffer(records.qi, dtype=np.int64)[ok]
-    return Judged(qidx, rows, dists, int((~ok).sum()))
+    return Judged(qidx, ids[ok], given[ok], int((~ok).sum()))
 
 
-def found_share(rows: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
-    """[m] share of each row of `exact` [m, k] present in the same row of
-    `rows` [m, k]."""
-    hit = (rows[:, :, None] == exact[:, None, :]).any(dim=1)
-    return hit.float().mean(dim=1)
+def found_due(ids: torch.Tensor, exact: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """([m] items of each row of `exact` [m, k] named in the same row of
+    `ids` [m, k], [m] items in that row of `exact`); -1 pads count in
+    neither."""
+    due = exact >= 0
+    hit = (ids[:, :, None] == exact[:, None, :]).any(dim=1) & due
+    return hit.sum(dim=1), due.sum(dim=1)
 
 
-def numbers(judged: Judged, exact_rows: torch.Tensor, ref_dists: torch.Tensor) -> dict[str, float]:
-    """The numbers compared, and recall.  `exact_rows` [pool, k] is the
-    reference's top-k of every pool query; `ref_dists` [m, k] its distance
-    for each returned key."""
+def numbers(judged: Judged, exact: torch.Tensor) -> dict[str, float]:
+    """bad_answers, recall and miss_share.  `exact` [pool, k] is the
+    reference's top-k of every pool query."""
     out = {"bad_answers": float(judged.bad)}
     m = len(judged.qidx)
     if m == 0:
-        # nothing answered: every number at its worst (2 is the widest a
-        # cosine distance can be off)
-        out.update(dist_gap=2.0, miss_share=1.0, recall=0.0)
+        out.update(miss_share=1.0, recall=0.0)
         return out
-    dev = exact_rows.device
-    rows = torch.as_tensor(judged.rows, device=dev)
-    got = torch.as_tensor(judged.dists, device=dev)
-    out["dist_gap"] = float((got - ref_dists).abs().max())
-    shares = torch.cat([
-        found_share(rows[o : o + 65_536],
-                    exact_rows[torch.as_tensor(judged.qidx[o : o + 65_536], device=dev)])
-        for o in range(0, m, 65_536)
-    ])
-    found = float(shares.double().sum())
-    out["recall"] = found / m
+    exact = torch.as_tensor(exact, dtype=torch.long)
+    dev = exact.device
+    ids = torch.as_tensor(judged.ids, device=dev)
+    found, due = map(torch.cat, zip(*(
+        found_due(ids[o : o + BLOCK], exact[torch.as_tensor(judged.qidx[o : o + BLOCK], device=dev)])
+        for o in range(0, m, BLOCK))))
+    some = due > 0
+    shares = found[some].float() / due[some].float()
+    # every answer whose exact list is empty has nothing to miss
+    out["recall"] = float(shares.double().sum()) / len(shares) if len(shares) else 1.0
     out["miss_share"] = 1.0 - out["recall"]
     return out
 

@@ -15,9 +15,10 @@ name.  A loop module has
                         request in `out`
 
 Every traffic file also gives `limit` (k of every request), `pool` (number
-of distinct queries drawn from), `query_noise` (sigma of the noise added to
-each query's source row) and `warmup_rounds` (requests each client sends
-during set-up); the loop kind's own parameters are its module's to read.
+of distinct queries drawn from) and `warmup_rounds` (requests each client
+sends during set-up); the loop kind's own parameters are its module's to
+read, and the queries' own (the vector corpus's `query_noise`) the
+configuration's corpus's (vsbench/corpora).
 """
 
 from __future__ import annotations
@@ -89,22 +90,25 @@ class Records:
     measured).  Request i carried pool query qi[i], was sent at sent[i] and
     answered at done[i] (perf_counter seconds); state[i] is SENT until it
     is answered, then ANSWERED, or FAILED where it raised or its answer
-    was malformed.  An answered request's rows and distances are
-    rows[i*k:(i+1)*k] and dists[i*k:(i+1)*k]."""
+    was malformed.  An answered request's item ids and scores are
+    ids[i*k:(i+1)*k] and scores[i*k:(i+1)*k]: an answer may name fewer
+    than k items (the rest of its ids read -1) and may give no scores
+    (its scores read NaN)."""
 
     SENT, ANSWERED, FAILED = 0, 1, 2
 
     def __init__(self, k: int, answer_rows) -> None:
         self.k = k
-        self._answer_rows = answer_rows  # answer -> (rows, dists) or None
+        # answer -> (ids, scores or None) or None where it is malformed
+        self._answer_rows = answer_rows
         self.sent = array("d")
         self.done = array("d")
         self.qi = array("q")
         self.state = array("b")
-        self.rows = array("q")
-        self.dists = array("f")
-        self._pad_rows = array("q", [-1] * k)
-        self._pad_dists = array("f", [0.0] * k)
+        self.ids = array("q")
+        self.scores = array("f")
+        self._pad_ids = array("q", [-1] * k)
+        self._pad_scores = array("f", [float("nan")] * k)
 
     def __len__(self) -> int:
         return len(self.sent)
@@ -114,19 +118,24 @@ class Records:
         self.done.append(0.0)
         self.qi.append(qi)
         self.state.append(self.SENT)
-        self.rows.extend(self._pad_rows)
-        self.dists.extend(self._pad_dists)
+        self.ids.extend(self._pad_ids)
+        self.scores.extend(self._pad_scores)
         return len(self.sent) - 1
 
     def close(self, i: int, answer, done: float) -> None:
         self.done[i] = done
         got = None if isinstance(answer, BaseException) else self._answer_rows(answer)
+        if got is not None:
+            ids, scores = got
+            if len(ids) > self.k or (scores is not None and len(scores) != len(ids)):
+                got = None
         if got is None:
             self.state[i] = self.FAILED
             return
-        k = self.k
-        self.rows[i * k : (i + 1) * k] = array("q", got[0])
-        self.dists[i * k : (i + 1) * k] = array("f", got[1])
+        at = i * self.k
+        self.ids[at : at + len(ids)] = array("q", ids)
+        if scores is not None:
+            self.scores[at : at + len(ids)] = array("f", scores)
         self.state[i] = self.ANSWERED
 
 

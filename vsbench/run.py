@@ -6,9 +6,11 @@ The cell (an entry of BENCHMARK.json's "workloads") names a configuration
 (vsbench/configs/<name>.json) and a traffic mix (vsbench/traffic/<name>.json).
 A run:
 
-  1. makes the rows and the query pool from the seed, on the card;
+  1. makes the items and the query pool from the seed, on the card (the
+     configuration's "corpus", vsbench/corpora/<name>.py);
   2. starts the system under test (the configuration's "driver",
-     vsbench/drivers/<name>.py) and loads the rows into it, timing the load;
+     vsbench/drivers/<name>.py) and loads the items into it, timing the
+     load;
   3. warms up: every client sends `warmup_rounds` requests;
   4. measures for --seconds: the clients of the traffic mix send queries
      until the window closes; with --trace 1 a profiler covers one bounded
@@ -16,8 +18,8 @@ A run:
   5. waits for the answers still due, reduces the slice, reads the device's
      memory peak, closes the system and synchronises the device;
   6. judges every request of the window against the plain reference (the
-     configuration's "reference", vsbench/references/<name>.py), made again
-     from the seed (vsbench/judge.py);
+     configuration's "reference", vsbench/references/<name>.py), on the
+     items and pool made again from the seed (vsbench/judge.py);
   7. prints one JSON line: correct, attempted, failed, metrics, device
      (and, traced, the breakdown), how the window served (rate, tail,
      batch size; no bound holds them), and last the numbers compared with
@@ -47,9 +49,10 @@ HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "vector_store_tpu")
 # seconds the answers still due when the window closes may take
 WAIT_S = 60.0
-# the program's counters of query batches (engine/ann_index.py)
-QUERIES, BATCHES, BATCH_S = ("vst_ann_queries_total", "vst_ann_batch_seconds_count",
-                             "vst_ann_batch_seconds_sum")
+# seconds the warm-up's requests may take: the first run in a checkout
+# builds the program's kernels at its first query (about a minute on the
+# card's host), and a run may take 1,200 s in all
+WARM_WAIT_S = 900.0
 
 
 def process_seconds() -> float:
@@ -120,29 +123,27 @@ async def measure(spec: dict, seed: int, seconds: float, traced: bool, device: s
     import numpy as np
     import torch
 
-    from . import data, judge, loop, trace
+    from . import judge, loop, trace
     from .reading import Reading
 
     config, traffic = spec["config"], spec["traffic"]
     clients_of = loop.kind(traffic)
-    n, d = int(config["rows"]), int(config["index"]["dimensions"])
-    k, recipe = int(traffic["limit"]), config["data"]
+    k = int(traffic["limit"])
     on_device = device != "cpu"
 
-    # 1. rows and pool from the seed
-    rows = data.rows_to_host(recipe, n, d, seed, device)
-    idx, noise = data.pool_draw(n, d, int(traffic["pool"]), seed, device)
-    src = torch.as_tensor(rows[idx.cpu().numpy()], device=device)
-    pool = data.pool_from(src, noise, float(traffic["query_noise"])).cpu().numpy()
-    del idx, noise, src
+    # 1. items and pool from the seed
+    corpus = load_file(HERE / "corpora" / f"{config['corpus']}.py")
+    items, pool = corpus.for_driver(config, traffic, seed, device)
+    n = len(items)
 
     # 2. the system under test
     driver = load_file(HERE / "drivers" / f"{config['driver']}.py")
+    batch = driver.BATCH_COUNTERS  # {"queries", "batches", "seconds"} or None
     system = driver.System(config, device)
-    await system.start(rows)
+    await system.start(items)
     missing_rows = n - system.loaded
     load_s = system.load_s
-    del rows
+    del items
 
     async def ask(qi):
         return await system.ask(pool[qi], k)
@@ -153,9 +154,12 @@ async def measure(spec: dict, seed: int, seconds: float, traced: bool, device: s
     # 3. warm-up: the cell's own batch shapes, through the same entry
     warm = loop.Records(k, answer_rows)
     gate = loop.Gate()
+    t_warm = time.perf_counter()
     if await loop.finish(clients_of.start(ask, traffic, seed + 1, warm, gate,
-                                           rounds=int(traffic["warmup_rounds"])), WAIT_S):
-        raise RuntimeError("the warm-up's requests were not answered")
+                                           rounds=int(traffic["warmup_rounds"])), WARM_WAIT_S):
+        raise RuntimeError(f"the warm-up's requests were not answered in {WARM_WAIT_S:.0f} s")
+    print(f"vsbench: set-up: load {load_s:.2f} s, warm-up {time.perf_counter() - t_warm:.2f} s",
+          file=sys.stderr, flush=True)
     if traced:
         trace.warm_profiler(on_device)
 
@@ -203,24 +207,16 @@ async def measure(spec: dict, seed: int, seconds: float, traced: bool, device: s
     if on_device:
         torch.cuda.empty_cache()
 
-    # 6. the reference, from the seed
+    # 6. the reference, on the items and pool made again from the seed
     reference = load_file(HERE / "references" / f"{config['reference']}.py")
-    ref_rows = data.rows_on(recipe, n, d, seed, device)
-    idx, noise = data.pool_draw(n, d, int(traffic["pool"]), seed, device)
-    ref_pool = data.pool_from(ref_rows[idx], noise, float(traffic["query_noise"]))
-    del idx, noise
-    _, exact = reference.topk(ref_rows, ref_pool, k)
-    judged = judge.collect(reqs)
-    if len(judged.qidx):
-        ref_d = reference.pair_distances(
-            ref_rows, ref_pool, torch.as_tensor(judged.qidx, device=device),
-            torch.as_tensor(judged.rows, device=device))
-    else:
-        ref_d = torch.zeros((0, k), device=device)
-    values = judge.numbers(judged, exact, ref_d)
+    ref_items, ref_pool = corpus.for_reference(config, traffic, seed, device)
+    exact = reference.exact(ref_items, ref_pool, k)
+    judged = judge.collect(reqs, reference.SCORES)
+    values = judge.numbers(judged, exact)
+    values.update(reference.compared(ref_items, ref_pool, judged, exact))
     values["missing_rows"] = float(missing_rows)
     correct, checks = judge.verdict(values, config["limits"])
-    del ref_rows, ref_pool, exact, ref_d
+    del ref_items, ref_pool, exact
 
     # 7. the numbers of the line
     attempted = len(reqs)
@@ -240,7 +236,7 @@ async def measure(spec: dict, seed: int, seconds: float, traced: bool, device: s
     out = {"correct": bool(correct), "attempted": attempted, "failed": failed}
     if traced:
         reading = Reading((before, after), (edges["start"], edges["stop"]), the_slice, on_device,
-                          load=(n, load_s))
+                          load=(n, load_s), batches=batch and batch["batches"])
         metrics = {}
         for m in spec["per_layer"]:
             value = load_file(HERE / "metrics" / f"{m['name']}.py").read(reading)
@@ -263,15 +259,16 @@ async def measure(spec: dict, seed: int, seconds: float, traced: bool, device: s
     per_s = np.histogram(done[ok], bins=int(seconds), range=(t0, t0 + int(seconds)))[0]
     # how the window served, for reading (no bound holds them, PERF.md); in
     # the traced run its two holds at the slice's edges are inside it
-    batches = after.get(BATCHES, 0.0) - before.get(BATCHES, 0.0)
+    def grew(what):
+        return after.get(batch[what], 0.0) - before.get(batch[what], 0.0)
+
+    batches = grew("batches") if batch else 0.0
     out["window"] = {"gave_up": gave_up, "answered_in_window": in_window,
                      "qps": in_window / seconds,
                      "p95_ms": float(np.percentile(lat, 95)) if len(lat) else None,
                      "answers_per_second": per_s.tolist(), "cpu_s": cpu_s,
-                     "batch_size": (after.get(QUERIES, 0.0) - before.get(QUERIES, 0.0)) / batches
-                     if batches else None,
-                     "enqueue_ms": 1e3 * (after.get(BATCH_S, 0.0) - before.get(BATCH_S, 0.0)) / batches
-                     if batches else None,
+                     "batch_size": grew("queries") / batches if batches else None,
+                     "enqueue_ms": 1e3 * grew("seconds") / batches if batches else None,
                      "load_s": load_s,
                      "recall": values["recall"], "gc_count": gc_clock.count,
                      "gc_s": gc_clock.total_s, "gc_longest_s": gc_clock.longest_s}

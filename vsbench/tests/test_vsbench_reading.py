@@ -22,7 +22,8 @@ def reading(events, on_device=True, load=(3_000, 1.5)):
     window = ({"vst_ann_queries_total": 100.0, "vst_ann_batch_seconds_count": 10.0},
               {"vst_ann_queries_total": 2100.0, "vst_ann_batch_seconds_count": 20.0})
     in_slice = ({"vst_ann_batch_seconds_count": 12.0}, {"vst_ann_batch_seconds_count": 14.0})
-    return Reading(window, in_slice, FakeSlice(events, 1_000, 11_000), on_device, load=load)
+    return Reading(window, in_slice, FakeSlice(events, 1_000, 11_000), on_device, load=load,
+                   batches="vst_ann_batch_seconds_count")
 
 
 EVENTS = [
@@ -93,3 +94,21 @@ def test_a_loop_kind_is_found_by_the_name_the_traffic_gives():
             loop.kind(dict(traffic, loop=name))
     with pytest.raises(ValueError):
         loop.kind(dict(traffic, clients=0))
+
+
+def test_a_pad_is_neither_found_nor_missed():
+    """A short answer of a driver that gives keys only, against an exact list
+    that holds fewer than k items; an answer to a query that matches nothing
+    counts in neither recall nor its miss."""
+    records = loop.Records(3, lambda answer: (answer, None))
+    for qi, answer in [(0, [5, 2]), (1, [7]), (2, []), (0, [1, 2, 3, 4])]:
+        records.close(records.open(0.0, qi), answer, 1.0)
+    judged = judge.collect(records, scores=False)
+    assert judged.bad == 1 and judged.ids.tolist() == [[5, 2, -1], [7, -1, -1], [-1, -1, -1]]
+    exact = [[2, 5, -1], [7, 8, 9], [-1, -1, -1]]
+    got = judge.numbers(judged, exact)
+    assert got["recall"] == pytest.approx((1.0 + 1 / 3) / 2)
+    assert got["miss_share"] == pytest.approx(1.0 - got["recall"])
+    # a reference that reads scores judges a keys-only answer bad (the empty
+    # one names nothing that lacks a score)
+    assert judge.collect(records, scores=True).bad == 3

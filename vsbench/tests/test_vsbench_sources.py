@@ -7,11 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from vsbench import judge
 from vsbench.references import exact_cosine
 
 HERE = Path(__file__).resolve().parent.parent
 SOURCES = sorted(p.relative_to(HERE).as_posix() for p in HERE.rglob("*.py"))
 REFERENCES = sorted(p.relative_to(HERE).as_posix() for p in (HERE / "references").glob("*.py"))
+CORPORA = sorted(p.relative_to(HERE).as_posix() for p in (HERE / "corpora").glob("*.py"))
 
 
 def imported(source: str) -> set[str]:
@@ -46,6 +48,12 @@ def test_the_reference_imports_nothing_of_the_program(path):
     assert names <= {"__future__", "torch", "numpy", "math"}, names
 
 
+@pytest.mark.parametrize("path", CORPORA)
+def test_a_corpus_imports_torch_and_numpy_alone(path):
+    names = imported((HERE / path).read_text())
+    assert names <= {"__future__", "torch", "numpy"}, names
+
+
 def test_the_import_check_compares_whole_top_level_names():
     src = ("import vector_store_tpu_torch\nfrom vector_store_tpu_torch.core import ivf\n"
            "import jaxtyping\nimport importlib\nimportlib.import_module('jax.numpy')\n")
@@ -71,3 +79,10 @@ def test_reference_topk_equals_a_numpy_brute_force():
     pd = exact_cosine.pair_distances(torch.from_numpy(rows), torch.from_numpy(queries),
                                      torch.arange(33), i, block=5)
     np.testing.assert_allclose(pd.numpy(), np.take_along_axis(full, want, 1), atol=1e-6)
+    # the same through the reference's interface (vsbench/judge.py): the exact
+    # ids, and dist_gap of answers that give numpy's distances
+    rows_t, queries_t = torch.from_numpy(rows), torch.from_numpy(queries)
+    exact = exact_cosine.exact(rows_t, queries_t, 7)
+    assert np.array_equal(exact.numpy(), want)
+    judged = judge.Judged(np.arange(33), want, np.take_along_axis(full, want, 1).astype(np.float32), 0)
+    assert exact_cosine.compared(rows_t, queries_t, judged, exact)["dist_gap"] <= 1e-6
