@@ -301,3 +301,63 @@ async def test_http_requests_are_timed_by_the_span_under_their_old_names():
     finally:
         await c.close()
         await engine.close()
+
+
+# -- the text index: load and serving ----------------------------------------------
+
+
+@pytest.mark.asyncio
+async def test_text_load_and_serving_series():
+    engine = await new_engine(new_index_factory(device="cpu"))
+    try:
+        index_id = IndexId.from_parts("ks", "text")
+        await engine.add_index(IndexMetadata(index_id=index_id, kind="text"))
+        handle = await engine.get_index(index_id)
+        docs = [f"doc {i} about w{i % 7} and w{i % 11}" for i in range(300)]
+        for off in (0, 100, 200):
+            await handle.add_batch([((i,), docs[i]) for i in range(off, off + 100)])
+        assert series("vst_text_apply_adds_seconds_count") == 3
+        assert series("vst_text_add_seconds_count") == 3
+        assert series("vst_text_analyze_seconds_count") == 3
+        apply_s = series("vst_text_apply_adds_seconds_sum")
+        assert apply_s >= series("vst_text_add_seconds_sum") >= series("vst_text_analyze_seconds_sum") > 0
+        assert series("vst_text_docs_total", index=str(index_id)) == 300
+        await handle.add((0,), "one doc alone")  # the per-document Add counts too
+        assert series("vst_text_docs_total", index=str(index_id)) == 301
+        assert series("vst_text_upload_seconds_count") == 0  # no query yet
+
+        n = 90
+        answers = await asyncio.gather(*(handle.search(f"w{i % 7}", Limit(5)) for i in range(n)))
+        assert all(len(keys) == 5 for keys in answers)
+        batches = series("vst_text_batch_seconds_count")
+        assert 1 <= batches < n
+        assert series("vst_text_queries_total", index=str(index_id)) == n
+        for name in ("vst_text_lock_wait_seconds", "vst_text_fetch_seconds"):
+            assert series(name + "_count") == batches, name
+        # the first query uploads the rows, whole; later adds flush dirty rows
+        assert series("vst_text_upload_seconds_count") == 1
+        assert series("vst_text_flush_seconds_count") == 0
+        await handle.add_batch([((1000,), "a new doc about w3")])
+        assert await handle.search("new", Limit(3)) == [(1000,)]
+        assert series("vst_text_upload_seconds_count") == 1
+        assert series("vst_text_flush_seconds_count") == 1
+        assert series("vst_text_dropped_terms_total") == 0
+        await handle.add_batch([((2000,), " ".join(f"u{i}" for i in range(300)))])
+        assert series("vst_text_dropped_terms_total") == 44
+    finally:
+        await engine.close()
+
+
+def test_the_text_scorer_is_a_trace_range_under_the_batch_span():
+    from vector_store_tpu_torch.text.bm25 import BM25Index
+
+    idx = BM25Index(device="cpu")
+    idx.add_batch(["alpha beta", "beta gamma"])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert [s for s, _ in idx.search(["beta"], 2)[0]] == [0, 1]
+    events = {e.name: e for e in prof.events()}
+    outer, inner = events["vst_text_batch_seconds"], events["text.score"]
+    assert outer.time_range.start <= inner.time_range.start
+    assert inner.time_range.end <= outer.time_range.end
+    assert "text.score" not in metrics.render()
+    assert series("vst_text_batch_seconds_count") == 1

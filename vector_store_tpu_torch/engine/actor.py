@@ -6,7 +6,8 @@ it through a typed async façade over the mailbox (the `IndexExt`
 extension-trait role, reference: src/index/actor.rs:29-59).
 
 Two protocols share the seam, exactly as in the reference:
-  * the live text protocol  — Add / Remove / Search (src/index/actor.rs:13-27)
+  * the live text protocol  — Add / Remove / Search (src/index/actor.rs:13-27),
+                              and AddBatch, many Adds in one message
   * the ANN protocol        — AddOrReplace / Remove / Ann / Count
                               (src/index/usearch.rs:148-171)
 A backend implements the subset it supports; unsupported messages resolve
@@ -45,6 +46,17 @@ class Add:
 
     key: PrimaryKey
     text: str
+    reply: asyncio.Future
+
+
+@dataclass
+class AddBatch:
+    """Live text protocol extension: one message carrying many acked
+    document inserts, the text counterpart of AddOrReplaceBatch.  Applied
+    as one batch (`BM25Index.add_batch`); a key given again, in the batch or
+    after it, replaces its document as n `Add` messages in order would."""
+
+    items: list  # [(PrimaryKey, str)]
     reply: asyncio.Future
 
 
@@ -172,6 +184,13 @@ class IndexHandle:
         """Acked insert — resolves when the backend applied it."""
         fut = asyncio.get_running_loop().create_future()
         await self._send(Add(key, text, fut))
+        await fut
+
+    async def add_batch(self, items: list) -> None:
+        """Acked inserts of [(key, text)] - resolves when the backend applied
+        the whole batch."""
+        fut = asyncio.get_running_loop().create_future()
+        await self._send(AddBatch(list(items), fut))
         await fut
 
     async def remove(self, key: PrimaryKey) -> None:

@@ -27,6 +27,7 @@ from ..core.index import SlotIndex
 from ..core.ivf import IvfIndex
 from .actor import (
     Add,
+    AddBatch,
     AddOrReplace,
     AddOrReplaceBatch,
     Ann,
@@ -294,7 +295,7 @@ class AnnIndexBackend:
                 if remap:
                     raise RuntimeError("id-stable backend returned a remap")
             msg.reply.set_result(self.index.count())
-        elif isinstance(msg, (Add, Search)):
+        elif isinstance(msg, (Add, AddBatch, Search)):
             raise TypeError("ANN index does not serve the text protocol")
         else:
             raise TypeError(f"unknown message {msg!r}")

@@ -17,8 +17,10 @@ parity notes:
 
 `Add` runs `BM25Index.add` in the executor while the batcher's flushes run
 `BM25Index.search` on other executor threads; the index's own lock orders
-them (text/bm25.py).  With `n_devices` > 1 the documents are sharded over
-a device list (text/sharded_bm25.py: the same flat-slot surface).
+them (text/bm25.py).  `AddBatch` runs `BM25Index.add_batch` and the key
+bindings in one executor hop.  With `n_devices` > 1 the documents are
+sharded over a device list (text/sharded_bm25.py: the same flat-slot
+surface).
 """
 
 from __future__ import annotations
@@ -29,7 +31,18 @@ from typing import Optional
 
 from ..text.bm25 import BM25Index
 from ..types import IndexId, IndexMetadata
-from .actor import Add, Ann, Count, IndexHandle, Remove, RemoveBatch, Search, spawn_index_actor
+from ..utils import metrics
+from .actor import (
+    Add,
+    AddBatch,
+    Ann,
+    Count,
+    IndexHandle,
+    Remove,
+    RemoveBatch,
+    Search,
+    spawn_index_actor,
+)
 from .batcher import MicroBatcher
 from .keymap import KeyMap
 
@@ -62,6 +75,7 @@ class TextIndexBackend:
     def _run_query_batch(self, items: list) -> list:
         texts = [t for t, _ in items]
         k_max = max(k for _, k in items)
+        metrics.counter("vst_text_queries_total", index=str(self.index_id)).inc(len(items))
         per_query = self.index.search(texts, k_max)
         out = []
         for hits, (_, k) in zip(per_query, items):
@@ -73,12 +87,36 @@ class TextIndexBackend:
             out.append(keys)
         return out
 
+    def _apply_adds(self, items: list) -> None:
+        """One AddBatch: the documents added, then each key bound in order,
+        the slot it held before removed."""
+        with metrics.span("vst_text_apply_adds_seconds"):
+            for key, _ in items:
+                # a bad key must fail before the add, or it leaves a document
+                # that count() sees and no lookup can reach
+                try:
+                    hash(key)
+                except TypeError as exc:
+                    raise ValueError(f"unusable primary key {key!r}: {exc}") from exc
+            with metrics.span("vst_text_add_seconds"):
+                slots = self.index.add_batch([text for _, text in items])
+            for (key, _), slot in zip(items, slots):
+                old = self.keymap.bind(key, slot)
+                if old is not None:
+                    self.index.remove(old)
+        metrics.counter("vst_text_docs_total", index=str(self.index_id)).inc(len(items))
+
     async def __call__(self, msg) -> None:
-        if isinstance(msg, Add):
+        if isinstance(msg, AddBatch):
+            await self._loop.run_in_executor(None, self._apply_adds, msg.items)
+            if not msg.reply.done():
+                msg.reply.set_result(None)
+        elif isinstance(msg, Add):
             slot = await self._loop.run_in_executor(None, self.index.add, msg.text)
             old = self.keymap.bind(msg.key, slot)
             if old is not None:
                 self.index.remove(old)
+            metrics.counter("vst_text_docs_total", index=str(self.index_id)).inc()
             if not msg.reply.done():
                 msg.reply.set_result(None)
         elif isinstance(msg, Remove):

@@ -46,7 +46,9 @@ a snapshot written by either package loads in the other.
 from __future__ import annotations
 
 import bisect
+import itertools
 import logging
+import operator
 import threading
 from collections import Counter
 
@@ -54,6 +56,7 @@ import numpy as np
 import torch
 
 from ..core.topk import INF, SENTINEL
+from ..utils import metrics
 from ..utils.persistio import atomic_savez_compressed
 from . import query as query_mod
 from . import tokenizer
@@ -209,14 +212,68 @@ def _score_topk(
     return best_s, best_i
 
 
+def _kept(counts: Counter) -> list[tuple[int, int]]:
+    """A document's stored (term, count) pairs: every distinct term in
+    order of first occurrence, or past U of them the U most frequent (ties
+    to the earlier), the drop logged and counted."""
+    if len(counts) <= MAX_DOC_TERMS:
+        return list(counts.items())
+    dropped = len(counts) - MAX_DOC_TERMS
+    log.warning(
+        "document exceeds %d distinct terms (%d); dropping %d rare terms",
+        MAX_DOC_TERMS,
+        len(counts),
+        dropped,
+    )
+    metrics.counter("vst_text_dropped_terms_total").inc(dropped)
+    return counts.most_common(MAX_DOC_TERMS)
+
+
+def _count_rows(ids: torch.Tensor, per_doc: np.ndarray) -> tuple[torch.Tensor, ...]:
+    """The rows `add` stores, for documents whose term ids `ids` (int64, one
+    document after another) come `per_doc` [n] to a document: (terms
+    [n, U], tf [n, U]) int32 with each document's distinct terms in order of
+    first occurrence, 0-padded; the distinct terms a document has [n]; and
+    the documents each stored term is in (terms [m], counts [m]).  A
+    document with more than U distinct terms gets an empty row here and
+    counts in no document frequency.
+
+    One sort over (document, term) pairs groups the pairs; the groups in
+    order of their first token are each document's Counter in order."""
+    dev = ids.device
+    n = len(per_doc)
+    doc = torch.repeat_interleave(
+        torch.arange(n, device=dev), torch.from_numpy(per_doc).to(dev)
+    )
+    key, pos = torch.sort(doc * tokenizer.TERM_SPACE + ids, stable=True)
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[1:] = key[1:] != key[:-1]
+    starts = torch.nonzero(head).flatten()
+    count = torch.diff(starts, append=starts.new_tensor([len(key)]))
+    by_first = torch.argsort(pos[starts])  # first tokens are distinct
+    key, count = key[starts][by_first], count[by_first]
+    g_doc = key // tokenizer.TERM_SPACE
+    distinct = torch.bincount(g_doc, minlength=n)
+    col = torch.arange(len(key), device=dev) - (torch.cumsum(distinct, 0) - distinct)[g_doc]
+    keep = distinct[g_doc] <= MAX_DOC_TERMS
+    terms = torch.zeros((n, MAX_DOC_TERMS), dtype=torch.int32, device=dev)
+    tf = torch.zeros((n, MAX_DOC_TERMS), dtype=torch.int32, device=dev)
+    at = (g_doc[keep], col[keep])
+    kept = key[keep] % tokenizer.TERM_SPACE
+    terms[at] = kept.to(torch.int32)
+    tf[at] = count[keep].to(torch.int32)
+    return (terms, tf, distinct) + torch.unique(kept, return_counts=True)
+
+
 class BM25Index:
     """Slot-addressed text index (the SlotIndex analogue for text).
 
     Host keeps tokenisation, document frequencies and slot allocation;
     the device keeps term/count tensors and does all scoring.
 
-    One lock orders every mutation against every search: `add` and
-    `remove` change the host rows and the dirty set under it, and `search`
+    One lock orders every mutation against every search: `add`,
+    `add_batch` (one hold a batch) and `remove` change the host rows and the
+    dirty set under it, and `search`
     holds it while it parses (the expanders read the vocabulary), flushes
     the dirty rows into the device tensors in place and enqueues the
     scorer.  A search on another thread therefore never sees half of a
@@ -252,6 +309,10 @@ class BM25Index:
         self._dirty_slots: set[int] = set()
         self._dev = None  # (terms, tf, length, valid) device tensors
         self._dev_rows = 0  # device row count (grows with the frontier)
+        # add_batch's [TERM_SPACE, 2] table on the device: under a term id the
+        # packed bytes of one word of the vocabulary with that id, so that a
+        # batch looks up only the words it cannot vouch for
+        self._known = None
         self._lock = threading.Lock()
 
     # -- mutation ---------------------------------------------------------
@@ -263,26 +324,20 @@ class BM25Index:
         new_cap = cap
         while new_cap < need:
             new_cap *= 2
-        self._terms = np.pad(self._terms, ((0, new_cap - cap), (0, 0)))
-        self._tf = np.pad(self._tf, ((0, new_cap - cap), (0, 0)))
-        self._length = np.pad(self._length, (0, new_cap - cap))
-        self._valid = np.pad(self._valid, (0, new_cap - cap))
+        for name in ("_terms", "_tf", "_length", "_valid"):
+            old = getattr(self, name)
+            # zeros from the allocator: the pages past the frontier are not
+            # written until a document lands there
+            new = np.zeros((new_cap,) + old.shape[1:], dtype=old.dtype)
+            new[:cap] = old
+            setattr(self, name, new)
 
     def add(self, text: str) -> int:
         """Insert a document, returns its slot."""
         words = tokenizer.tokenize(text)
         ids = [tokenizer.term_id(w) for w in words]
         counts = Counter(ids)
-        if len(counts) > MAX_DOC_TERMS:
-            kept_pairs = counts.most_common(MAX_DOC_TERMS)
-            log.warning(
-                "document exceeds %d distinct terms (%d); dropping %d rare terms",
-                MAX_DOC_TERMS,
-                len(counts),
-                len(counts) - MAX_DOC_TERMS,
-            )
-        else:
-            kept_pairs = list(counts.items())
+        kept_pairs = _kept(counts)
         with self._lock:
             for w, t in zip(words, ids):
                 if w not in self._vocab:
@@ -309,6 +364,63 @@ class BM25Index:
             self._seqs[slot] = np.asarray(ids, dtype=np.int32)
             self._dirty_slots.add(slot)
         return slot
+
+    def add_batch(self, texts: list[str]) -> list[int]:
+        """Insert documents, returns their slots: the index is then what
+        `add` of each in turn leaves, field for field (rows, df, lengths,
+        vocabulary and its order, sequences, dirty slots), in one pass of
+        vectorised analysis (`tokenizer.analyze`, on the index's device),
+        one lock hold and at most one growth."""
+        texts = list(texts)
+        n = len(texts)
+        if n == 0:
+            return []
+        with metrics.span("vst_text_analyze_seconds"):
+            if self._known is None:
+                self._known = torch.zeros(
+                    (tokenizer.TERM_SPACE, 2), dtype=torch.int64, device=self.device
+                )
+            batch = tokenizer.analyze(texts, self.device, self._known)
+            per_doc, words = batch.per_doc, batch.words
+            terms, tf, distinct, df_terms, df_counts = (
+                a.cpu().numpy() for a in _count_rows(batch.ids, per_doc)
+            )
+            host_ids = batch.ids.to(torch.int32).cpu().numpy()
+            ends = np.cumsum(per_doc).tolist()
+            seqs = [host_ids[a:b] for a, b in zip([0] + ends[:-1], ends)]
+            df_terms, df_counts = df_terms.tolist(), df_counts.tolist()
+            overflow = Counter()
+            for d in np.flatnonzero(distinct > MAX_DOC_TERMS).tolist():
+                kept = _kept(Counter(seqs[d].tolist()))
+                terms[d, : len(kept)] = [t for t, _ in kept]
+                tf[d, : len(kept)] = [c for _, c in kept]
+                overflow.update(t for t, _ in kept)
+        with self._lock:
+            vocab = self._vocab
+            for w in [w for w in words if w not in vocab]:
+                t = vocab[w] = words[w]
+                self._vocab_by_len.setdefault(len(w), []).append((w, t))
+                self._vocab_dirty = True
+            # every packed word of the batch is in the vocabulary now
+            self._known[batch.packed_ids] = batch.packed
+            f = self._frontier
+            self._grow(f + n)
+            self._terms[f : f + n] = terms
+            self._tf[f : f + n] = tf
+            self._length[f : f + n] = per_doc
+            self._valid[f : f + n] = True
+            self._frontier += n
+            self._size += n
+            # df over exactly the stored term sets, as add() counts it
+            had = list(map(self._df.get, df_terms, itertools.repeat(0)))
+            dict.update(self._df, zip(df_terms, map(operator.add, had, df_counts)))
+            self._df.update(overflow)
+            self._total_len += int(per_doc.sum())
+            if len(self._seqs) < f:
+                self._seqs.extend([None] * (f - len(self._seqs)))
+            self._seqs[f : f + n] = seqs
+            self._dirty_slots.update(range(f, f + n))
+        return list(range(f, f + n))
 
     def remove(self, slot: int) -> None:
         with self._lock:
@@ -414,21 +526,24 @@ class BM25Index:
         rows = min(rows, self._terms.shape[0])
         if self._dev is None or self._dev_rows != rows:
             # (re)size: full upload, on the first query after growth
-            self._dev = tuple(
-                torch.from_numpy(a[:rows]).to(self.device, copy=True)
-                for a in (self._terms, self._tf, self._length, self._valid)
-            )
+            with metrics.span("vst_text_upload_seconds"):
+                self._dev = None  # the old tensors go before the new arrive
+                self._dev = tuple(
+                    torch.from_numpy(a[:rows]).to(self.device, copy=True)
+                    for a in (self._terms, self._tf, self._length, self._valid)
+                )
             self._dev_rows = rows
             self._dirty_slots.clear()
         elif self._dirty_slots:
             # incremental: scatter only the mutated rows, in place
-            slots = np.fromiter(self._dirty_slots, dtype=np.int64)
-            slots = slots[slots < rows]
-            at = torch.from_numpy(slots).to(self.device)
-            for dev, host in zip(
-                self._dev, (self._terms, self._tf, self._length, self._valid)
-            ):
-                dev[at] = torch.from_numpy(host[slots]).to(self.device)
+            with metrics.span("vst_text_flush_seconds"):
+                slots = np.fromiter(self._dirty_slots, dtype=np.int64)
+                slots = slots[slots < rows]
+                at = torch.from_numpy(slots).to(self.device)
+                for dev, host in zip(
+                    self._dev, (self._terms, self._tf, self._length, self._valid)
+                ):
+                    dev[at] = torch.from_numpy(host[slots]).to(self.device)
             self._dirty_slots.clear()
         return self._dev
 
@@ -523,26 +638,39 @@ class BM25Index:
         Supports the simple_query_string operator subset (query.py):
         +required, -forbidden, "phrases" (positional, host-verified)."""
         # parse, flush and enqueue the scorer under the lock
-        with self._lock:
-            if self._size == 0:
-                return [[] for _ in texts]
-            parsed = [query_mod.parse(t, expander=self) for t in texts]
-            use_ops = any(
-                p.required or p.forbidden or p.phrases or p.neg_phrases
-                for p in parsed
-            )
-            # structured (AST) queries and phrases are verified host-side
-            # over an overfetched candidate set
-            any_host = any(
-                p.phrases or p.neg_phrases or p.ast is not None for p in parsed
-            )
-            packed = self._pack_queries(parsed)
-            k_fetch = min(PHRASE_OVERFETCH * k, self._frontier) if any_host else k
-            k_fetch = max(k_fetch, k)
-            arrays = self._device_arrays()
-            avg = np.float32(max(self._total_len / max(self._size, 1), 1.0))
-            scores, ids = self._score(arrays, packed, avg, k_fetch, use_ops)
-        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        with metrics.span("vst_text_lock_wait_seconds"):
+            self._lock.acquire()
+        try:
+            with metrics.span("vst_text_batch_seconds"):
+                if self._size == 0:
+                    return [[] for _ in texts]
+                parsed = [query_mod.parse(t, expander=self) for t in texts]
+                use_ops = any(
+                    p.required or p.forbidden or p.phrases or p.neg_phrases
+                    for p in parsed
+                )
+                # structured (AST) queries and phrases are verified host-side
+                # over an overfetched candidate set
+                any_host = any(
+                    p.phrases or p.neg_phrases or p.ast is not None for p in parsed
+                )
+                packed = self._pack_queries(parsed)
+                k_fetch = min(PHRASE_OVERFETCH * k, self._frontier) if any_host else k
+                k_fetch = max(k_fetch, k)
+                arrays = self._device_arrays()
+                avg = np.float32(max(self._total_len / max(self._size, 1), 1.0))
+                with metrics.span("text.score", series=False):
+                    scores, ids = self._score(arrays, packed, avg, k_fetch, use_ops)
+        finally:
+            self._lock.release()
+        with metrics.span("vst_text_fetch_seconds"):
+            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+            return self._filter(parsed, scores, ids, k)
+
+    def _filter(self, parsed: list, scores: np.ndarray, ids: np.ndarray, k: int):
+        """Each query's hits of the scorer's candidates: a score above 0 (or
+        any score of a pure-operator query), the phrases and the boolean
+        AST verified over the host's rows."""
         out = []
         for j, p in enumerate(parsed):
             # a pure-operator query ("-word") scores 0 on every surviving

@@ -16,7 +16,9 @@ shard emits (`row * S + shard`) is the flat host slot, so every host-side
 consumer (keymap, phrase and AST verification) works as it is.  The
 average document length is global.
 
-Two things override the base class:
+Two things override the base class (`add_batch` is the base class's, so
+a batch lands on the same flat slots as the same documents added one by
+one):
   * `_device_arrays`: one (terms, tf, length, valid) tuple per shard, with
     the same power-of-two row buckets and dirty-row writes;
   * `_score`: the scorer on every shard, then the merge (scores merge
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..shard.mesh import gid_merge, make_mesh
+from ..utils import metrics
 from .bm25 import BM25Index, _score_topk
 
 
@@ -80,19 +83,22 @@ class ShardedBM25Index(BM25Index):
                     )
                 return torch.from_numpy(np.ascontiguousarray(block)).to(self.mesh[s], copy=True)
 
-            self._dev = [tuple(rows_of(a, s) for a in hosts) for s in range(S)]
+            with metrics.span("vst_text_upload_seconds"):
+                self._dev = None  # the old tensors go before the new arrive
+                self._dev = [tuple(rows_of(a, s) for a in hosts) for s in range(S)]
             self._dev_rows = R
             self._dirty_slots.clear()
         elif self._dirty_slots:
-            slots = np.fromiter(self._dirty_slots, dtype=np.int64)
-            slots = slots[slots < R * S]
-            for s in range(S):
-                mine = slots[slots % S == s]
-                if mine.size == 0:
-                    continue
-                at = torch.from_numpy(mine // S).to(self.mesh[s])
-                for dev, host in zip(self._dev[s], hosts):
-                    dev[at] = torch.from_numpy(host[mine]).to(self.mesh[s])
+            with metrics.span("vst_text_flush_seconds"):
+                slots = np.fromiter(self._dirty_slots, dtype=np.int64)
+                slots = slots[slots < R * S]
+                for s in range(S):
+                    mine = slots[slots % S == s]
+                    if mine.size == 0:
+                        continue
+                    at = torch.from_numpy(mine // S).to(self.mesh[s])
+                    for dev, host in zip(self._dev[s], hosts):
+                        dev[at] = torch.from_numpy(host[mine]).to(self.mesh[s])
             self._dirty_slots.clear()
         return self._dev
 
