@@ -45,7 +45,11 @@ parallel), then:
      version bit for bit, distances and ids, on the cases of PRUNE_CASES
      (the insert and refine shapes, dot with negative distances, l2,
      C = 1,024, C not a multiple of 32, all-INF nodes, an unsorted pool,
-     R > C), one launch a call;
+     R > C), one launch a call; and the insert's reverse-edge kernel against
+     its plain rounds bit for bit, neighbors and nbr_dist, on the cases of
+     REVERSE_CASES (the insert shape, hubs far past REVERSE_ROUNDS, degrees
+     16 to 256, empty rows, ties, SENTINEL targets, NaN slots), one launch
+     a call;
   5. serves a kind-"ann" (graph) index over HTTP: the route's default
      dtype (bf16), cosine, capacity 131,072; bulk-loads 131,072 rows of the
      bench corpus recipe through the engine handle plus 256 through
@@ -136,10 +140,13 @@ parallel), then:
      search; a search round and an insert round captured at the 1M
      frontier, B3's two entries held against their plain versions on them
      and timed (cold L2) beside their bounds; peak device memory; the prune
-     kernel's launches (one an insert block), then one 256-row insert block
-     at that frontier with the prune kernel and with its plain version:
-     device operations a block, wall ms a block, and the kernel on that
-     block's own inputs, bit-equal, timed beside its byte bound;
+     and reverse-edge kernels' launches (one each an insert block), then one
+     256-row insert block at that frontier with the prune kernel and with
+     its plain version: device operations a block, wall ms a block, and the
+     kernel on that block's own inputs, bit-equal, timed beside its byte
+     bound; the same for the reverse-edge kernel against its plain rounds
+     (also the device operations of one call, and the launch alone, the
+     wrapper with its sort and the plain rounds in turns);
  15. the soaks on the card, in this process: engine_soak (HTTP clients
      storm serve() for 30 s), fuzz_soak (the model oracle over the four
      backends for 30 s, the sharded ones on four logical shards) and
@@ -323,13 +330,18 @@ def _fmt(t) -> str:
 
 def _count_kernels(torch, fn, names=None) -> int:
     """Device operations (kernels, copies, memsets) one call of fn runs,
-    counted by torch.profiler; their names are appended to `names`."""
+    counted by torch.profiler; their names are appended to `names`.  A
+    profile of a call that short has come back empty once in a long run,
+    so an empty one is taken again, up to three times."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
     if names is not None:
         names += ops
     return len(ops)
@@ -1238,6 +1250,210 @@ def prune_check(torch, device, names=None) -> int:
     return len(names)
 
 
+def _insert_block_turns(torch, idx, rows, name, keep=lambda args: args):
+    """One 256-row insert block into SlotIndex idx with graph_cuda's kernel
+    wrapper `name` and with its plain version (`name`_plain) in its place:
+    device operations a block (torch.profiler) and wall ms a block (4
+    blocks an add, synchronised; kernel, plain, plain, kernel); then one
+    more block through the wrapper, whose arguments come back through
+    `keep`.  Returns (out, walls, args).  `rows` holds at least 2,304 rows;
+    the index takes them all."""
+    from vector_store_tpu_torch.core import graph_cuda as gc
+
+    kernel, plain = getattr(gc, name), getattr(gc, f"{name}_plain")
+    saved = idx.insert_block
+    idx.insert_block = 256
+    out = {}
+    try:
+        for label, fn in (("kernel", kernel), ("plain", plain)):
+            setattr(gc, name, fn)
+            out[f"ops_{label}"] = _count_kernels(torch, lambda: idx.add(rows[:256]))
+        walls = {"kernel": [], "plain": []}
+        for i, label in enumerate(("kernel", "plain", "plain", "kernel")):
+            setattr(gc, name, kernel if label == "kernel" else plain)
+            block = rows[256 + i * 512 : 256 + (i + 1) * 512]
+            block = np.concatenate([block, block])  # 4 blocks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx.add(block)
+            torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - t0) * 1e3 / 4)
+        captured = []
+
+        def capture(*args):
+            captured.append(keep(args))
+            return kernel(*args)
+
+        setattr(gc, name, capture)
+        idx.add(rows[:256])
+    finally:
+        setattr(gc, name, kernel)
+        idx.insert_block = saved
+    out.update(block_ms_kernel=float(np.median(walls["kernel"])),
+               block_ms_plain=float(np.median(walls["plain"])))
+    return out, walls, captured[0]
+
+
+# the reverse edges' cases, held bit for bit against their plain version in
+# phase 4 and by tests/test_torch_reverse_cuda.py: name -> (degree R, rows
+# C, nodes M (M * R edges), what else)
+REVERSE_CASES = {
+    "insert": (32, 1 << 18, 256, ""),  # insert_impl's block at the defaults
+    "hub": (32, 4096, 256, "hub"),  # targets among 64 rows: runs far past REVERSE_ROUNDS
+    "r16": (16, 1 << 16, 256, ""),
+    "r64": (64, 1 << 16, 256, ""),
+    "r100": (100, 1 << 14, 64, ""),  # R not a multiple of 32: 4 slots a lane, some empty
+    "r256": (256, 1 << 14, 32, ""),  # the widest row the kernel takes
+    "fresh": (32, 1 << 14, 256, "fresh"),  # every row INF / SENTINEL pads
+    "ties": (32, 2048, 256, "ties"),  # lengths and row slots among 5 values, -0.0 and 0.0
+    "sentinel": (32, 1 << 14, 256, "sentinel"),  # half the targets SENTINEL, a third dead
+    "nan": (32, 4096, 128, "nan"),  # NaN slots (argmax takes the first), live NaN lengths
+}
+
+
+def reverse_case(torch, name, device):
+    """The arguments of one reverse_edges call but the rounds, (neighbors,
+    nbr_dist, tgt, src, d, e_live), for REVERSE_CASES[name]: rows of random
+    slots and lengths, every 7th row holding only its first R // 4 edges
+    (INF / SENTINEL pads), 40 short edges into row 1 (past
+    REVERSE_ROUNDS), a tenth of the edges dead, a fiftieth of the lengths
+    INF (dead, as insert_impl marks them), sources as fresh slots past C."""
+    from vector_store_tpu_torch.core.topk import INF, SENTINEL
+
+    R, C, M, how = REVERSE_CASES[name]
+    gen = torch.Generator(device=device).manual_seed(SEED + 40 + list(REVERSE_CASES).index(name))
+    E = M * R
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=device, dtype=torch.int32)
+
+    scale = 5 if how == "ties" else 1 << 12
+    nbrs = ints(C, C, R)
+    dist = (ints(scale, C, R) + 1).float() / scale
+    pad = torch.zeros((C, R), dtype=torch.bool, device=device)
+    pad[::7, R // 4 :] = True
+    if how == "fresh":
+        pad[:] = True
+    if how == "nan":
+        dist[::5, 3] = float("nan")
+        dist[1::10, 0] = float("nan")
+    nbrs, dist = nbrs.masked_fill(pad, SENTINEL), dist.masked_fill(pad, INF)
+    tgt = ints(64 if how == "hub" else C, E)
+    d = ints(scale, E).float() / scale
+    hub = torch.randperm(E, generator=gen, device=device)[:40]
+    tgt[hub] = 1
+    d[hub] = d[hub] * 1e-3
+    src = C + torch.arange(E, dtype=torch.int32, device=device)
+    e_live = rand(E) < (0.67 if how == "sentinel" else 0.9)
+    e_live[hub] = True
+    if how == "sentinel":
+        tgt = tgt.masked_fill(rand(E) < 0.5, SENTINEL)
+    if how == "ties":  # half the zero lengths -0.0
+        d = d.masked_fill((d == 0) & (rand(E) < 0.5), -0.0)
+    if how == "nan":  # live NaN lengths: sorted after every number
+        d[::97] = float("nan")
+    inf = rand(E) < 0.02
+    d = d.masked_fill(inf, INF)
+    return nbrs, dist, tgt, src, d, e_live & ~inf
+
+
+def reverse_check(torch, device, names=None) -> int:
+    """The reverse-edge kernel against its plain rounds on the cases of
+    REVERSE_CASES (all, or `names`): neighbors and nbr_dist equal bit for
+    bit, one launch a call on the card.  Returns the number of cases
+    held."""
+    from vector_store_tpu_torch.core import build
+    from vector_store_tpu_torch.core import graph_cuda as gc
+
+    names = names or list(REVERSE_CASES)
+    for name in names:
+        nbrs, dist, *edges = reverse_case(torch, name, device)
+        k_n, k_d, p_n, p_d = nbrs.clone(), dist.clone(), nbrs.clone(), dist.clone()
+        before = gc.LAUNCHES["reverse_edges"]
+        gc.reverse_edges(k_n, k_d, *edges, build.REVERSE_ROUNDS)
+        gc.reverse_edges_plain(p_n, p_d, *edges, build.REVERSE_ROUNDS)
+        _sync(torch, device)
+        launched = gc.LAUNCHES["reverse_edges"] - before
+        same = torch.equal(k_n, p_n) and torch.equal(k_d.view(torch.int32), p_d.view(torch.int32))
+        changed = int((p_n != nbrs).any(1).sum())
+        R, C, M, _ = REVERSE_CASES[name]
+        log(f"  reverse edges {name:8s} (R {R}, C {C}, {M * R} edges): {changed} rows changed, "
+            f"{'bit-equal' if same else 'DIFFERENT'}, {launched} launch(es)")
+        if not same:
+            raise AssertionError(f"the reverse-edge kernel differs from its plain version ({name})")
+        if launched != int(device == "cuda"):
+            raise AssertionError(f"reverse edges {name}: {launched} launches")
+        if changed == 0:
+            raise AssertionError(f"reverse edges {name}: the case changed no row")
+    return len(names)
+
+
+def reverse_at_frontier(torch, idx, rows) -> dict:
+    """_insert_block_turns with the reverse-edge kernel against its plain
+    rounds, then on one block's own edges: the kernel bit-equal to the
+    rounds, the device operations of a call of each, and in turns the
+    rounds, the wrapper (its sort by target and the launch) and the launch
+    alone, warm, beside the launch's byte bound (the edges read once, each
+    target's row read once, each changed row written once).  Later calls in
+    the turns find the rows already updated."""
+    from vector_store_tpu_torch.core import graph_cuda as gc
+    from vector_store_tpu_torch.core.topk import SENTINEL
+    from vector_store_tpu_torch.kernels.build import load_library
+
+    # the rows are updated in place: keep them as the wrapper found them
+    out, walls, args = _insert_block_turns(
+        torch, idx, rows, "reverse_edges",
+        keep=lambda args: (args[0].clone(), args[1].clone(), *args[2:]))
+    nbrs, dist, tgt, src, d, e_live, rounds = args
+    k_n, k_d, p_n, p_d = nbrs.clone(), dist.clone(), nbrs.clone(), dist.clone()
+    edges = (tgt, src, d, e_live, rounds)
+    gc.reverse_edges(k_n, k_d, *edges)
+    gc.reverse_edges_plain(p_n, p_d, *edges)
+    torch.cuda.synchronize()
+    if not (torch.equal(k_n, p_n) and torch.equal(k_d.view(torch.int32), p_d.view(torch.int32))):
+        raise AssertionError("the reverse-edge kernel differs from the rounds at the frontier")
+    C, R = nbrs.shape
+    E = len(tgt)
+    tgt_s, perm = torch.sort(torch.where(e_live, tgt, SENTINEL), stable=True)
+    targets = int(torch.unique(tgt_s[tgt_s != SENTINEL]).numel())
+    changed = int((p_n != nbrs).any(1).sum())
+    nbytes = E * (4 + 4 + 4 + 8) + targets * R * 8 + changed * R * 8
+    bound, by = _bound(nbytes, 0, None)
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.graph_reverse_edges(k_n.data_ptr(), k_d.data_ptr(), tgt_s.data_ptr(),
+                                      perm.data_ptr(), src.data_ptr(), d.data_ptr(), E, C, R,
+                                      rounds, stream)
+        if err:
+            raise RuntimeError(f"graph_reverse_edges: CUDA error {err}")
+
+    out["ops_call_kernel"] = _count_kernels(torch, lambda: gc.reverse_edges(k_n, k_d, *edges))
+    out["ops_call_plain"] = _count_kernels(torch, lambda: gc.reverse_edges_plain(p_n, p_d, *edges))
+    t = _turns(torch, {"plain": lambda: gc.reverse_edges_plain(p_n, p_d, *edges),
+                       "wrapper": lambda: gc.reverse_edges(k_n, k_d, *edges),
+                       "kernel": launch},
+               {"plain": 1, "wrapper": 20, "kernel": 20}, cold=False)
+    out.update(ms=t["kernel"][0], wrapper_ms=t["wrapper"][0], plain_ms=t["plain"][0],
+               bound_ms=bound, bound_by=by, bytes=nbytes, edges=E, targets=targets,
+               changed=changed)
+    log(f"  one 256-row insert block at the {idx.frontier} frontier: {out['ops_kernel']} device "
+        f"operations with the reverse-edge kernel, {out['ops_plain']} with its plain rounds "
+        f"({out['ops_plain'] - out['ops_kernel']} fewer); wall {out['block_ms_kernel']:.2f} ms a "
+        f"block against {out['block_ms_plain']:.2f} (4 blocks an add, kernel {walls['kernel']}, "
+        f"plain {walls['plain']})")
+    log(f"  reverse edges on that block's own edges ({E} edges, {targets} targets, {changed} "
+        f"rows changed, R {R}): bit-equal; device operations a call {out['ops_call_kernel']} "
+        f"(the sort and the launch) against {out['ops_call_plain']}; warm, in turns: launch "
+        f"{_fmt(t['kernel'])}, wrapper {_fmt(t['wrapper'])}, plain rounds {_fmt(t['plain'])}; "
+        f"bound {bound:.5f} ms ({by}, {nbytes} bytes), share {bound / t['kernel'][0]:.3f}")
+    return out
+
+
 def prune_at_frontier(torch, idx, rows) -> dict:
     """One 256-row insert block into SlotIndex idx, with the prune kernel
     and with its plain version: device operations a block (torch.profiler),
@@ -1250,36 +1466,7 @@ def prune_at_frontier(torch, idx, rows) -> dict:
     from vector_store_tpu_torch.core import graph_cuda as gc
     from vector_store_tpu_torch.core.topk import INF
 
-    kernel = gc.robust_prune
-    saved = idx.insert_block
-    idx.insert_block = 256
-    out = {}
-    try:
-        for label, fn in (("kernel", kernel), ("plain", gc.robust_prune_plain)):
-            gc.robust_prune = fn
-            out[f"ops_{label}"] = _count_kernels(torch, lambda: idx.add(rows[:256]))
-        walls = {"kernel": [], "plain": []}
-        for i, label in enumerate(("kernel", "plain", "plain", "kernel")):
-            gc.robust_prune = kernel if label == "kernel" else gc.robust_prune_plain
-            block = rows[256 + i * 512 : 256 + (i + 1) * 512]
-            block = np.concatenate([block, block])  # 4 blocks
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            idx.add(block)
-            torch.cuda.synchronize()
-            walls[label].append((time.perf_counter() - t0) * 1e3 / 4)
-        captured = []
-
-        def capture(*args):
-            captured.append(args)
-            return kernel(*args)
-
-        gc.robust_prune = capture
-        idx.add(rows[:256])
-    finally:
-        gc.robust_prune = kernel
-        idx.insert_block = saved
-    args = captured[0]
+    out, walls, args = _insert_block_turns(torch, idx, rows, "robust_prune")
     pd, cd, ids = args[:3]
     d_k, i_k = gc.robust_prune(*args)
     d_p, i_p = gc.robust_prune_plain(*args)
@@ -1298,9 +1485,7 @@ def prune_at_frontier(torch, idx, rows) -> dict:
                        "kernel": lambda: gc.robust_prune(*args)},
                {"plain": 1, "kernel": 20}, cold=False)
     out.update(ms=t["kernel"][0], plain_ms=t["plain"][0], bound_ms=bound, bound_by=by,
-               bytes=nbytes, kept=int(kept.sum()), shape=(M, C, W),
-               block_ms_kernel=float(np.median(walls["kernel"])),
-               block_ms_plain=float(np.median(walls["plain"])))
+               bytes=nbytes, kept=int(kept.sum()), shape=(M, C, W))
     log(f"  one 256-row insert block at the {idx.frontier} frontier: {out['ops_kernel']} device "
         f"operations with the prune kernel, {out['ops_plain']} with its plain version "
         f"({out['ops_plain'] - out['ops_kernel']} fewer); wall "
@@ -2872,11 +3057,13 @@ def phase_graph_scale(torch, n=N_SCALE, device="cuda", data=None):
     idx, build_s, rebuilds = scale.build_graph(corpus, "bfloat16", device=device)
     out = {"add_vec_s": n / build_s, "rebuilds": rebuilds,
            "launches_build": gc.LAUNCHES["expand_score"],
-           "launches_prune_build": gc.LAUNCHES["robust_prune"]}
+           "launches_prune_build": gc.LAUNCHES["robust_prune"],
+           "launches_reverse_build": gc.LAUNCHES["reverse_edges"]}
     blocks = -(-n // idx.insert_block)
-    if device == "cuda" and out["launches_prune_build"] != blocks:
-        raise AssertionError(f"{blocks} insert blocks launched the prune "
-                             f"{out['launches_prune_build']} times")
+    for key in ("prune", "reverse"):
+        if device == "cuda" and out[f"launches_{key}_build"] != blocks:
+            raise AssertionError(f"{blocks} insert blocks launched the {key} kernel "
+                                 f"{out[f'launches_{key}_build']} times")
     st = idx.state
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     log(f"  built {n} x {DIM} bf16 (capacity {idx.capacity}, insert blocks 1,024) in {build_s:.2f}"
@@ -2885,8 +3072,8 @@ def phase_graph_scale(torch, n=N_SCALE, device="cuda", data=None):
         f"{st.vectors.numel() * st.vectors.element_size() / 1e9:.3f} GB, adjacency "
         f"{st.neighbors.numel() * 4 / 1e9:.3f} GB; peak device memory {peak / 2**30:.2f} GiB, "
         f"{(peak - held) / 2**30:.2f} GiB above what earlier phases still hold; B3 launches "
-        f"{out['launches_build']}, prune launches {out['launches_prune_build']} ({blocks} insert "
-        f"blocks)")
+        f"{out['launches_build']}, prune launches {out['launches_prune_build']}, reverse-edge "
+        f"launches {out['launches_reverse_build']} ({blocks} insert blocks)")
     if not rebuilds or rebuilds[0][0] < index_mod.ROUTE_MIN_ROWS or idx.cfg.route_k == 0:
         raise AssertionError(f"the add path built no router: {rebuilds}")
 
@@ -2952,6 +3139,7 @@ def phase_graph_scale(torch, n=N_SCALE, device="cuda", data=None):
         f"{idx.cfg.search_iters} rounds")
     if device == "cuda":
         out["prune"] = prune_at_frontier(torch, idx, make_extra(corpus, 2304, seed=SEED + 8))
+        out["reverse"] = reverse_at_frontier(torch, idx, make_extra(corpus, 2304, seed=SEED + 9))
     del idx, st
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -3105,10 +3293,11 @@ def main() -> int:
     svc, geo = asyncio.run(phase_service(torch, n))
     torch.cuda.empty_cache()
 
-    log("phase 4: graph kernel B3 vs plain PyTorch at serving shapes; the prune kernel vs its "
-        "plain version")
+    log("phase 4: graph kernel B3 vs plain PyTorch at serving shapes; the prune and reverse-edge "
+        "kernels vs their plain versions")
     b3_err, b3_timing = phase_graph_kernels(torch)
     prune_cases = prune_check(torch, "cuda")
+    reverse_cases = reverse_check(torch, "cuda")
     torch.cuda.empty_cache()
 
     log(f"phase 5: graph (kind ann) service at N={N_GRAPH}")
@@ -3328,9 +3517,35 @@ def main() -> int:
         "block_ms": prune["block_ms_kernel"],
         "block_ms_plain": prune["block_ms_plain"],
     })
+    rev = gscale["reverse"]
+    kernels.append({
+        # times: one 256-row insert block's own edges at the 1M frontier,
+        # the launch alone (the sort before it is PyTorch's), warm, median
+        # of turns; wrapper_ms adds the sort
+        "name": "graph_reverse_edges",
+        "route": "cuda",
+        "source": src + "graph_reverse.cu",
+        "replaces": "vector_store_tpu/core/build.py:126 (a fori_loop of rounds, no Pallas kernel)",
+        "launches": gscale["launches_reverse_build"],
+        "cases_bit_equal": reverse_cases,
+        "max_abs_err": 0.0,
+        "ms": rev["ms"],
+        "wrapper_ms": rev["wrapper_ms"],
+        "plain_ms": rev["plain_ms"],
+        "bound_ms": rev["bound_ms"],
+        "bound_by": rev["bound_by"],
+        "library_ms": None,
+        "ops_per_call": rev["ops_call_kernel"],
+        "ops_per_call_plain": rev["ops_call_plain"],
+        "ops_per_block": rev["ops_kernel"],
+        "ops_per_block_plain": rev["ops_plain"],
+        "block_ms": rev["block_ms_kernel"],
+        "block_ms_plain": rev["block_ms_plain"],
+    })
     for kern in kernels:
         kern["library_note"] = no_library
-    kernels[-1]["library_note"] = "no single PyTorch call: a scan whose every step reads the last"
+    kernels[-2]["library_note"] = "no single PyTorch call: a scan whose every step reads the last"
+    kernels[-1]["library_note"] = "no single PyTorch call: each target's edges applied in turn"
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

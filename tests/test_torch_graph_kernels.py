@@ -5,6 +5,11 @@ The insert's robust prune (`build._robust_prune`, whose plain version is
 `graph_cuda.robust_prune_plain`) is held against the JAX package's on
 dyadic rows, whose distances both packages compute exactly: kept ids and
 distances equal as sets per node (JAX's top-k may order ties otherwise).
+The insert's reverse edges (`build._apply_reverse_edges`, plain rounds
+`graph_cuda.reverse_edges_plain`) equal the JAX package's exactly, on hub
+targets past REVERSE_ROUNDS edges, tied lengths, SENTINEL targets, dead
+edges and INF-padded rows; the per-target walk that the CUDA kernel makes
+(one warp a target, its edges in order) gives the same rows.
 
 B3's plain version is held against the Pallas kernel `gather_score_fused`
 in interpret mode: f32, bf16 and int8 banks, cosine/dot/l2, candidate ids
@@ -262,6 +267,128 @@ def test_robust_prune_wrapper_takes_the_plain_version_on_the_cpu():
     assert got[0].shape == (len(dist), 8)
     with pytest.raises(ValueError):
         graph_cuda.robust_prune(pd.to("meta"), *args[1:])
+    assert graph_cuda.LAUNCHES == before
+
+
+def _reverse_case(R, seed, C=300, M=64):
+    """(neighbors [C, R], nbr_dist [C, R], tgt, src, d, e_live [M * R]) as
+    numpy: rows of eighths (tied slots), every 7th row holding only its
+    first R // 4 edges and row 3 none (INF / SENTINEL pads); edge lengths
+    in eighths (tied edges), targets in the first two thirds of the rows,
+    40 short edges into hub row 5 and 20 into the empty row 3 (past
+    REVERSE_ROUNDS), a twentieth of the targets SENTINEL (some still marked
+    live), a tenth of the edges dead, a few INF lengths (dead, as
+    insert_impl marks them)."""
+    rng = np.random.default_rng(seed)
+    nbrs = rng.integers(0, C, size=(C, R)).astype(np.int32)
+    dist = (rng.integers(1, 40, size=(C, R)) / 8).astype(np.float32)
+    pad = np.zeros((C, R), bool)
+    pad[::7, R // 4 :] = True
+    pad[3] = True
+    nbrs[pad], dist[pad] = SENT, np.inf
+    dist[5] = 100.0  # the hub's row: every short edge would enter
+    E = M * R
+    tgt = rng.integers(0, 2 * C // 3, size=E).astype(np.int32)  # the last third: no edge
+    d = (rng.integers(0, 40, size=E) / 8).astype(np.float32)
+    hub = rng.choice(E, 60, replace=False)
+    tgt[hub[:40]], tgt[hub[40:]] = 5, 3
+    d[hub] = (rng.integers(0, 8, size=60) / 8).astype(np.float32)
+    src = (C + np.arange(E)).astype(np.int32)
+    e_live = rng.random(E) < 0.9
+    e_live[hub] = True
+    sent = rng.random(E) < 0.05
+    sent[hub] = False
+    tgt[sent] = SENT
+    inf = rng.random(E) < 0.02
+    inf[hub] = False
+    d[inf] = np.inf
+    e_live &= ~inf
+    return nbrs, dist, tgt, src, d, e_live
+
+
+@pytest.mark.parametrize("R", [16, 32, 64])
+def test_reverse_edges_plain_matches_jax(R):
+    nbrs, dist, tgt, src, d, e_live = _reverse_case(R, seed=R)
+    j_n, j_d = jbuild._apply_reverse_edges(*(jnp.asarray(a) for a in (nbrs, dist, tgt, src, d,
+                                                                      e_live)))
+    t_n, t_d = torch.from_numpy(nbrs.copy()), torch.from_numpy(dist.copy())
+    graph_cuda.reverse_edges_plain(t_n, t_d, *(torch.from_numpy(a) for a in (tgt, src, d, e_live)),
+                                   tbuild.REVERSE_ROUNDS)
+    np.testing.assert_array_equal(t_n.numpy(), np.asarray(j_n))
+    np.testing.assert_array_equal(t_d.numpy().view(np.int32), np.asarray(j_d).view(np.int32))
+    # the cases are there: rows changed, ranks past REVERSE_ROUNDS dropped
+    changed = (t_n.numpy() != nbrs).any(1)
+    assert changed.sum() > 0 and not changed[2 * len(nbrs) // 3 :].any()
+    cap = min(tbuild.REVERSE_ROUNDS, R)
+    for row, n_edges in ((5, 40), (3, 20)):
+        offered = src[(tgt == row) & e_live]
+        assert len(offered) >= n_edges > tbuild.REVERSE_ROUNDS
+        assert np.isin(t_n.numpy()[row], offered).sum() == cap
+    # the build's entry point takes the same path
+    b_n, b_d = torch.from_numpy(nbrs.copy()), torch.from_numpy(dist.copy())
+    tbuild._apply_reverse_edges(b_n, b_d, *(torch.from_numpy(a) for a in (tgt, src, d, e_live)))
+    assert torch.equal(b_n, t_n) and torch.equal(b_d, t_d)
+
+
+def _walk_per_target(nbrs, dist, tgt, src, d, e_live, rounds):
+    """The reverse-edge kernel's order of work in numpy: the edges sorted
+    stably by target alone; per run, its first `rounds` edges by (length,
+    index), NaN lengths last and -0.0 equal to 0.0, each in turn replacing
+    the row's first largest slot when shorter."""
+    nbrs, dist = nbrs.copy(), dist.copy()
+    sort_tgt = np.where(e_live, tgt, SENT)
+    order = np.argsort(sort_tgt, kind="stable")
+    i = 0
+    while i < len(order):
+        t = sort_tgt[order[i]]
+        j = i
+        while j < len(order) and sort_tgt[order[j]] == t:
+            j += 1
+        run = sorted(order[i:j], key=lambda e: (bool(np.isnan(d[e])), np.nan_to_num(d[e]), e))
+        for e in run[:rounds] if t != SENT else []:
+            w = int(np.argmax(dist[t]))
+            if d[e] < dist[t, w]:
+                nbrs[t, w], dist[t, w] = src[e], d[e]
+        i = j
+    return nbrs, dist
+
+
+@pytest.mark.parametrize("R", [16, 32, 64])
+def test_reverse_edges_walk_per_target_equals_the_rounds(R):
+    """One pass per target, its edges in order (the kernel's design), gives
+    the rounds' rows bit for bit: NaN slots (argmax takes the first, and no
+    edge is shorter than it), live NaN lengths (sorted last), -0.0 and 0.0
+    lengths (equal: by index) in a run past REVERSE_ROUNDS."""
+    nbrs, dist, tgt, src, d, e_live = _reverse_case(R, seed=100 + R)
+    dist[11, 2] = np.nan
+    tgt[:3], e_live[:3], d[:3] = 11, True, 0.0
+    run = np.arange(3, 23)
+    tgt[run], e_live[run] = 12, True
+    d[run] = np.tile(np.array([-0.0, 0.0, np.nan, 0.5], np.float32), 5)
+    for rounds in (1, tbuild.REVERSE_ROUNDS):
+        want_n, want_d = _walk_per_target(nbrs, dist, tgt, src, d, e_live, rounds)
+        t_n, t_d = torch.from_numpy(nbrs.copy()), torch.from_numpy(dist.copy())
+        graph_cuda.reverse_edges_plain(t_n, t_d, *(torch.from_numpy(a) for a in
+                                                   (tgt, src, d, e_live)), rounds)
+        np.testing.assert_array_equal(t_n.numpy(), want_n)
+        np.testing.assert_array_equal(t_d.numpy().view(np.int32), want_d.view(np.int32))
+        assert np.isnan(t_d.numpy()[11, 2]) and t_n.numpy()[11, 2] == nbrs[11, 2]
+    signs = np.signbit(t_d.numpy()[12][np.isin(t_n.numpy()[12], src[run])])
+    assert signs.any() and not signs.all()  # both zeros entered row 12
+
+
+def test_reverse_edges_wrapper_takes_the_plain_version_on_the_cpu():
+    nbrs, dist, tgt, src, d, e_live = (torch.from_numpy(a) for a in _reverse_case(32, seed=9))
+    w_n, w_d, p_n, p_d = nbrs.clone(), dist.clone(), nbrs.clone(), dist.clone()
+    before = dict(graph_cuda.LAUNCHES)
+    graph_cuda.reverse_edges(w_n, w_d, tgt, src, d, e_live, tbuild.REVERSE_ROUNDS)
+    assert graph_cuda.LAUNCHES == before  # the CPU takes the plain version
+    graph_cuda.reverse_edges_plain(p_n, p_d, tgt, src, d, e_live, tbuild.REVERSE_ROUNDS)
+    assert torch.equal(w_n, p_n) and torch.equal(w_d, p_d)
+    assert not torch.equal(w_n, nbrs)
+    with pytest.raises(ValueError):
+        graph_cuda.reverse_edges(nbrs.to("meta"), dist.to("meta"), tgt, src, d, e_live,
+                                 tbuild.REVERSE_ROUNDS)
     assert graph_cuda.LAUNCHES == before
 
 

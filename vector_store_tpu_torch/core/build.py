@@ -11,9 +11,10 @@ A block of M new vectors is grafted into the graph by one step:
      kernel launch on the card) with the candidate-pairwise distances from
      one batched matmul;
   3. rows, scales, forward edges and edge lengths are written in place;
-  4. reverse edges go in over REVERSE_ROUNDS rounds: edges sorted by
-     (target, length) and ranked within each target, round r applying the
-     rank-r edges, so no round writes one target row twice.
+  4. reverse edges: edges sorted by (target, length), each target's first
+     REVERSE_ROUNDS edges offered to its row in order (one kernel launch
+     on the card, one warp a target; on the CPU rounds of the rank-r edges,
+     so no round writes one target row twice).
 
 Deletes are tombstones (valid = False): dead nodes keep routing traffic
 and are filtered from results.  Every step updates the state's tensors in
@@ -31,14 +32,7 @@ from .cluster import ring_assign
 from .distance import gathered, pairwise, preprocess
 from .graph import GraphConfig, GraphState, gather_vectors, store_vectors
 from .search import search_pool
-from .topk import (
-    INF,
-    SENTINEL,
-    dedup_by_id,
-    lexsort_stable,
-    rank_in_run,
-    topk_ascending_stable,
-)
+from .topk import INF, SENTINEL, dedup_by_id, topk_ascending_stable
 
 # Reverse-edge rounds: edges ranked >= this within their target are dropped
 # (only when many same-batch nodes pick one hub neighbour).
@@ -103,29 +97,11 @@ def _apply_reverse_edges(
     e_live: torch.Tensor,  # [E] bool
 ) -> None:
     """Degree-clamped reverse-edge insertion: an edge replaces its target's
-    longest edge when it is shorter.  Race-free by round."""
-    sort_tgt = tgt.masked_fill(~e_live, SENTINEL)
-    perm = lexsort_stable([sort_tgt, d])  # by target, shorter edges first
-    tgt_s, d_s, src_s, live_s = sort_tgt[perm], d[perm], src[perm], e_live[perm]
-    rank = rank_in_run(tgt_s)
-    act = live_s & (tgt_s != SENTINEL) & (rank < REVERSE_ROUNDS)
-    # the lanes of each round, in one readback: lanes ordered by rank
-    lanes = torch.nonzero(act).squeeze(1)
-    lanes = lanes[torch.sort(rank[lanes], stable=True).indices]
-    counts = torch.bincount(rank[lanes].long(), minlength=REVERSE_ROUNDS).tolist()
-    start = 0
-    for n in counts:
-        if n == 0:
-            break  # ranks are dense: no lane of a later round either
-        sel = lanes[start : start + n]
-        start += n
-        t = tgt_s[sel].long()  # distinct within a round
-        rows_n, rows_d = neighbors[t], nbr_dist[t]
-        worst = torch.argmax(rows_d, dim=1, keepdim=True)
-        better = (d_s[sel] < torch.gather(rows_d, 1, worst)[:, 0])[:, None]
-        upd = better & (torch.arange(rows_d.shape[1], device=t.device)[None, :] == worst)
-        neighbors.index_copy_(0, t, torch.where(upd, src_s[sel][:, None], rows_n))
-        nbr_dist.index_copy_(0, t, torch.where(upd, d_s[sel][:, None], rows_d))
+    longest edge when it is shorter, a target's edges in order of length,
+    those ranked REVERSE_ROUNDS or later dropped.  One launch of the
+    reverse-edge kernel on the card (graph_cuda.reverse_edges), the rounds
+    loop on the CPU."""
+    graph_cuda.reverse_edges(neighbors, nbr_dist, tgt, src, d, e_live, REVERSE_ROUNDS)
 
 
 def insert_cfg(cfg: GraphConfig) -> GraphConfig:
@@ -247,7 +223,7 @@ def refine_block_impl(
 ) -> GraphState:
     """NN-descent local join (in place): recompute the forward edges of rows
     [base, base + block) from their 2-hop neighbourhood, then offer each
-    refined edge to its target through the reverse-edge rounds."""
+    refined edge to its target through the reverse edges."""
     C = state.capacity
     R = cfg.degree
     slots = base_slot + torch.arange(block, dtype=torch.int32, device=state.device)

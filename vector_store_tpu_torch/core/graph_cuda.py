@@ -17,11 +17,18 @@ RobustPrune selection of core/build.py::_robust_prune, one launch an insert
 or refine block, where the JAX package runs a lax.scan
 (vector_store_tpu/core/build.py:61-123) and no Pallas kernel.
 
+reverse_edges -> graph_reverse_edges (csrc/graph_reverse.cu): the reverse
+edges of core/build.py::_apply_reverse_edges, one launch an insert or
+refine block after one sort of the edges by target, where the JAX package
+runs a fori_loop of rounds (vector_store_tpu/core/build.py:126-165) and no
+Pallas kernel.
+
 Each wrapper chooses by the device of the tensors it is given: CPU tensors
 go to the plain PyTorch version beside it, CUDA tensors launch the kernel
 (or raise).  LAUNCHES counts kernel launches only, by entry point; while a
 torch.profiler runs, each launch is also a range kernel.b3_<entry point>
-(kernel.robust_prune for the prune).
+(kernel.robust_prune for the prune, kernel.reverse_edges for the reverse
+edges).
 """
 
 from __future__ import annotations
@@ -30,15 +37,18 @@ import torch
 
 from ..utils import metrics
 from .ivf_cuda import _DTYPES, _SPACES, _check_launch
-from .topk import INF, SENTINEL, topk_ascending_stable
+from .topk import INF, SENTINEL, lexsort_stable, rank_in_run, topk_ascending_stable
 
-LAUNCHES = {"gather_score": 0, "expand_score": 0, "robust_prune": 0}
+LAUNCHES = {"gather_score": 0, "expand_score": 0, "robust_prune": 0, "reverse_edges": 0}
 
 # the plain version gathers [q, BR, D] f32 rows; bound that transient
 _PLAIN_BYTES = 1 << 29
 # the prune kernel holds a node's candidates in shared memory (at most 13
 # bytes each, csrc/graph_prune.cu), which bounds the candidates a node
 PRUNE_MAX_CANDIDATES = 16384
+# the reverse-edge kernel holds a target's row in a warp's registers, at
+# most 8 slots a lane (csrc/graph_reverse.cu)
+REVERSE_MAX_DEGREE = 256
 
 
 def gather_score_plain(
@@ -332,3 +342,98 @@ def robust_prune(
     _check_launch("graph_robust_prune", err)
     LAUNCHES["robust_prune"] += 1
     return out_d, out_i
+
+
+def reverse_edges_plain(
+    neighbors: torch.Tensor,  # [C, R] int32, updated in place
+    nbr_dist: torch.Tensor,  # [C, R] f32, updated in place
+    tgt: torch.Tensor,  # [E] int32 edge targets
+    src: torch.Tensor,  # [E] int32 edge sources
+    d: torch.Tensor,  # [E] f32 edge lengths
+    e_live: torch.Tensor,  # [E] bool
+    rounds: int,
+) -> None:
+    """Degree-clamped reverse-edge insertion in plain torch: an edge
+    replaces its target's longest edge when it is shorter.  Race-free by
+    round: edges sorted by (target, length) and ranked within each target,
+    round r applying the rank-r edges; ranks >= rounds are dropped."""
+    sort_tgt = tgt.masked_fill(~e_live, SENTINEL)
+    perm = lexsort_stable([sort_tgt, d])  # by target, shorter edges first
+    tgt_s, d_s, src_s, live_s = sort_tgt[perm], d[perm], src[perm], e_live[perm]
+    rank = rank_in_run(tgt_s)
+    act = live_s & (tgt_s != SENTINEL) & (rank < rounds)
+    # the lanes of each round, in one readback: lanes ordered by rank
+    lanes = torch.nonzero(act).squeeze(1)
+    lanes = lanes[torch.sort(rank[lanes], stable=True).indices]
+    counts = torch.bincount(rank[lanes].long(), minlength=rounds).tolist()
+    start = 0
+    for n in counts:
+        if n == 0:
+            break  # ranks are dense: no lane of a later round either
+        sel = lanes[start : start + n]
+        start += n
+        t = tgt_s[sel].long()  # distinct within a round
+        rows_n, rows_d = neighbors[t], nbr_dist[t]
+        worst = torch.argmax(rows_d, dim=1, keepdim=True)
+        better = (d_s[sel] < torch.gather(rows_d, 1, worst)[:, 0])[:, None]
+        upd = better & (torch.arange(rows_d.shape[1], device=t.device)[None, :] == worst)
+        neighbors.index_copy_(0, t, torch.where(upd, src_s[sel][:, None], rows_n))
+        nbr_dist.index_copy_(0, t, torch.where(upd, d_s[sel][:, None], rows_d))
+
+
+def reverse_edges(
+    neighbors: torch.Tensor,  # [C, R] int32, updated in place
+    nbr_dist: torch.Tensor,  # [C, R] f32, updated in place
+    tgt: torch.Tensor,  # [E] int32
+    src: torch.Tensor,  # [E] int32
+    d: torch.Tensor,  # [E] f32
+    e_live: torch.Tensor,  # [E] bool
+    rounds: int,
+) -> None:
+    """reverse_edges_plain's result in one launch after one stable sort of
+    the edges by target: neighbors and nbr_dist equal bit for bit.  The
+    kernel walks each target's first `rounds` edges by (length, index) with
+    one warp; no host read, no allocation beyond the sort's."""
+    if neighbors.device.type == "cpu":
+        return reverse_edges_plain(neighbors, nbr_dist, tgt, src, d, e_live, rounds)
+    dev = neighbors.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    C, R = neighbors.shape
+    (E,) = tgt.shape
+    if not 0 < R <= REVERSE_MAX_DEGREE or rounds < 0:
+        raise ValueError(f"the reverse edges take 1 <= R <= {REVERSE_MAX_DEGREE} and "
+                         f"rounds >= 0, got R {R}, rounds {rounds}")
+    _check(
+        dev,
+        ("neighbors", neighbors, torch.int32, (C, R)),
+        ("nbr_dist", nbr_dist, torch.float32, (C, R)),
+        ("tgt", tgt, torch.int32, (E,)),
+        ("src", src, torch.int32, (E,)),
+        ("d", d, torch.float32, (E,)),
+        ("e_live", e_live, torch.bool, (E,)),
+    )
+    if E == 0 or C == 0 or rounds == 0:
+        return
+    tgt_s, perm = torch.sort(torch.where(e_live, tgt, SENTINEL), stable=True)
+    from ..kernels.build import load_library
+
+    with (
+        torch.cuda.device(dev),  # the launch runs on the current device
+        metrics.span("kernel.reverse_edges", series=False),
+    ):
+        err = load_library().graph_reverse_edges(
+            neighbors.data_ptr(),
+            nbr_dist.data_ptr(),
+            tgt_s.data_ptr(),
+            perm.data_ptr(),
+            src.data_ptr(),
+            d.data_ptr(),
+            E,
+            C,
+            R,
+            rounds,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch("graph_reverse_edges", err)
+    LAUNCHES["reverse_edges"] += 1

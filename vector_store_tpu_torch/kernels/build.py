@@ -60,6 +60,8 @@ _SIGNATURES = {
     "graph_expand_score": [_I] + [_P] * 6 + [_I] * 8 + [_P] * 3,
     # pd, cand_dist, cand_ids, shift, alpha, M, C, W, n_keep, out_d, out_i, stream
     "graph_robust_prune": [_P] * 4 + [_F] + [_I] * 4 + [_P] * 3,
+    # neighbors, nbr_dist, tgt_s, perm, src, d, E, C, R, rounds, stream
+    "graph_reverse_edges": [_P] * 6 + [_I] * 4 + [_P],
     # q, bank, nblocks, B, D, score, nbuf, acc, stream
     "copy_probe_stream": [_P] * 2 + [_I] * 5 + [_P] * 2,
 }
