@@ -2600,7 +2600,7 @@ async def phase_sharded_ivf(torch, data, single_recall, device="cuda", shards=N_
             _zero(ivf_cuda.LAUNCHES)
             ingest_s = await _ingest(http, base, handle, corpus, extra)
             want = n + len(extra)
-            fill = [b.n_live for b in idx._books]
+            fill = [sh.count() for sh in idx.shards]
             log(f"  sharded IVF over HTTP: {want} rows in {ingest_s:.2f} s "
                 f"({want / ingest_s:.0f} vec/s through the handle); {shards} shards of "
                 f"{idx.n_clusters} clusters x bucket {idx.bucket}, rows per shard {fill}")
@@ -2642,7 +2642,7 @@ async def phase_sharded_ivf(torch, data, single_recall, device="cuda", shards=N_
             out["recall_batch"] = _recall([r.tolist() for r in ids], truth)
             # gids decode: a gid's shard and local rowid name the bank slot it was read from
             shard, rowid = idx.decode(int(ids[0, 0]))
-            k_, p_ = idx._books[shard].loc[rowid]
+            k_, p_ = idx.shards[shard]._loc[rowid]
             if int(idx.states[shard].rowid[k_, p_]) != rowid:
                 raise AssertionError("a returned gid does not decode to its shard's row")
 
@@ -2674,7 +2674,8 @@ async def phase_sharded_ivf(torch, data, single_recall, device="cuda", shards=N_
             # the two-stage scan calls it (the rounded query, this shard's route)
             st = idx.states[1]
             # (a rehearsal too small to have clustered has derived no bank yet)
-            coarse = idx._coarse_banks[1] if idx._coarse_banks else derive_coarse(st.vectors)
+            shard1 = idx.shards[1]
+            coarse = shard1._coarse_bank if shard1._coarse_bank is not None else derive_coarse(st.vectors)
             q2, cids2, _ = ivf_cuda.route(
                 st, torch.as_tensor(queries[:256], device=device), "cosine", idx.probes, rounded=True)
             rid2, nsb2 = ivf_cuda.scan_masks(st)

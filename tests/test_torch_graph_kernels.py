@@ -38,7 +38,7 @@ from vector_store_tpu_torch.core import cluster as tcluster
 from vector_store_tpu_torch.core import graph_cuda
 from vector_store_tpu_torch.core import topk as ttopk
 from vector_store_tpu_torch.core.graph import GraphConfig
-from vector_store_tpu_torch.core.ivf import _from_numpy
+from vector_store_tpu_torch.core.ivf import from_numpy
 
 C, D, Q, BR = 512, 128, 8, 64
 ATOL = 1e-5
@@ -63,7 +63,7 @@ def _bank(dtype: str, rng):
     else:
         vec = np.asarray(jnp.asarray(rows).astype(dtype))
         scl = np.ones((C,), np.float32)
-    return jnp.asarray(vec), jnp.asarray(scl), _from_numpy(vec, "cpu"), torch.from_numpy(scl)
+    return jnp.asarray(vec), jnp.asarray(scl), from_numpy(vec, "cpu"), torch.from_numpy(scl)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])

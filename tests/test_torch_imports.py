@@ -7,6 +7,9 @@ vector_store_tpu_torch fails, and so does any import of `bench` (the JAX
 package's bench.py: the port keeps its own copy of the corpus recipe in
 probes/data.py).  (That the port keeps `jax` itself out of
 sys.modules is pinned by test_torch_service.py and test_torch_probes.py.)
+
+The sharded classes drive the single-device indexes through their public
+steps: no module under shard/ imports a `_`-prefixed name from core/.
 """
 
 import ast
@@ -74,3 +77,38 @@ def test_port_module_imports_nothing_of_the_jax_package(path):
 )
 def test_the_import_check_finds_what_it_must(source, want):
     assert jax_package_imports(source) == want
+
+
+SHARD_FILES = [f for f in FILES if f.startswith(f"{PORT}/shard/")]
+
+
+def private_core_imports(source: str) -> list[str]:
+    """The `_`-prefixed names a module under shard/ imports from core/, as
+    'line: module.name'."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if not isinstance(node, ast.ImportFrom) or not node.module:
+            continue
+        relative = node.level == 2 and node.module.split(".")[0] == "core"
+        if relative or node.module.startswith(f"{PORT}.core"):
+            found += [f"{node.lineno}: {node.module}.{a.name}" for a in node.names
+                      if a.name.startswith("_")]
+    return found
+
+
+@pytest.mark.parametrize("path", SHARD_FILES)
+def test_shard_modules_import_no_private_name_of_core(path):
+    assert SHARD_FILES and private_core_imports((ROOT / path).read_text()) == []
+
+
+@pytest.mark.parametrize(
+    "source,want",
+    [
+        ("from ..core.ivf import IvfIndex, _from_numpy\n", ["1: core.ivf._from_numpy"]),
+        ("def f():\n    from vector_store_tpu_torch.core.persist import _config\n",
+         ["2: vector_store_tpu_torch.core.persist._config"]),
+        ("from ..core.ivf import IvfIndex\nfrom .mesh import _helper\n", []),
+    ],
+)
+def test_the_private_import_check_finds_what_it_must(source, want):
+    assert private_core_imports(source) == want

@@ -222,7 +222,7 @@ def test_pool_scan_matches_pallas(packed, space):
         )
     )
     trm, tq, tc, tnsb = _port_inputs(ts, q, cids)
-    tvec = tivf._from_numpy(vec, "cpu")
+    tvec = tivf.from_numpy(vec, "cpu")
     pool = ivf_cuda.pool_scan_plain(tvec, ts.scales, trm, tq, tc, space, packed, tnsb)
     wrapped = ivf_cuda.pool_scan_fused(tvec, ts.scales, trm, tq, tc, space, packed, tnsb)
     assert torch.equal(pool, wrapped)

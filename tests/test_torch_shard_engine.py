@@ -3,7 +3,9 @@ device="cpu" with n_devices=4: kinds "ivf", "ann", "exact", "auto" and
 "text" are served from the sharded classes (`new_index_factory(n_devices=)`,
 `--n-devices`, VST_TPU_N_DEVICES), compaction over the engine follows the
 sharded graph's gid remap, and the entry point refuses more devices than
-the machine has with the JAX package's message.
+the machine has with the JAX package's message.  Every ANN index, sharded
+or not, answers through `search_dispatch`, and the engine reads a sharded
+answer back outside its locks.
 """
 
 import asyncio
@@ -19,7 +21,9 @@ from aiohttp.test_utils import TestClient, TestServer
 from vector_store_tpu_torch import IndexId, IndexMetadata, IndexParams, Limit, new_index_factory
 from vector_store_tpu_torch.api.routes import build_app
 from vector_store_tpu_torch.config import Config
-from vector_store_tpu_torch.engine.ann_index import AnnIndexFactory
+from vector_store_tpu_torch.core.index import SlotIndex
+from vector_store_tpu_torch.core.ivf import IvfIndex
+from vector_store_tpu_torch.engine.ann_index import AnnIndexBackend, AnnIndexFactory
 from vector_store_tpu_torch.engine.engine import new_engine
 from vector_store_tpu_torch.engine.text_index import TextIndexFactory
 from vector_store_tpu_torch.shard.sharded_index import ShardedSlotIndex
@@ -205,6 +209,74 @@ async def test_sharded_ann_actor_and_compaction_over_the_engine():
     finally:
         handle.close()
         await handle.join()
+
+
+def _any_index(kind, params):
+    """One of the four ANN index classes on the CPU, sharded over S shards."""
+    if kind == "ivf":
+        return IvfIndex(params, cluster_min=512, device="cpu")
+    if kind in ("graph", "exact"):
+        return SlotIndex(params, exact=kind == "exact", device="cpu")
+    if kind == "sharded-ivf":
+        return ShardedIvfIndex(params, n_devices=S, cluster_min=512, device="cpu")
+    return ShardedSlotIndex(params, n_devices=S, exact=kind == "sharded-exact", device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kind", ["ivf", "graph", "exact", "sharded-ivf", "sharded-graph", "sharded-exact"]
+)
+def test_search_dispatch_then_fetch_equals_search(kind):
+    """The engine's query protocol on every ANN index: the fetch that
+    search_dispatch returns answers as search does, a batch and one query
+    alike (the IVF indexes past their first clustering)."""
+    idx = _any_index(kind, IndexParams(dimensions=16, space="cosine"))
+    x = _data(1500, 16, seed=2)
+    idx.add(x)
+    q = x[:40] + 0.01
+    fetch = idx.search_dispatch(q, 10)
+    d, i = fetch()
+    want_d, want_i = idx.search(q, 10)
+    assert i.dtype == np.int64 and i.shape == (40, 10)
+    np.testing.assert_array_equal(i, want_i)
+    np.testing.assert_array_equal(d, want_d)
+    d1, i1 = idx.search_dispatch(q[3], 10)()
+    np.testing.assert_array_equal(i1, idx.search(q[3], 10)[1])
+    assert i1.shape == (10,) and (i[:, 0] >= 0).all()
+
+
+@pytest.mark.parametrize("kind,backend", [("ivf", "ivf"), ("ann", "graph")])
+@pytest.mark.asyncio
+async def test_sharded_backend_reads_back_outside_the_locks(kind, backend):
+    """An AnnIndexBackend over 2 shards answers a query batch through the
+    index's search_dispatch, and its fetch runs with the engine's
+    _serve_lock and the index's lock both free."""
+    b = AnnIndexBackend(
+        IndexId.from_parts("ks", kind), IndexParams(dimensions=16, space="cosine"),
+        backend=backend, device="cpu", n_devices=2,
+    )
+    try:
+        assert b.index.n_shards == 2
+        x = _data(300, 16, seed=3)
+        b._apply_upserts([(f"k{j}", v) for j, v in enumerate(x)])
+        held = []
+        dispatch = b.index.search_dispatch
+
+        def spy(queries, k):
+            fetch = dispatch(queries, k)
+
+            def checked():
+                held.append((b._serve_lock.locked(), b.index._lock.locked()))
+                return fetch()
+
+            return checked
+
+        b.index.search_dispatch = spy
+        out = b._run_query_batch([(x[7], 3, 0), (x[30], 1, 0)])
+        assert held == [(False, False)]
+        assert out[0][0][0] == "k7" and len(out[0][0]) == 3
+        assert out[1][0] == ["k30"]
+    finally:
+        await b.shutdown()
 
 
 def test_config_reads_the_device_count_like_jax(monkeypatch):

@@ -70,14 +70,22 @@ def _recall(got, want):
 
 
 def _books_equal(j, t):
-    """Two indexes' host books; rowids are compared at live slots (a loaded
-    index forgets the rowid of a tombstoned slot, in both packages)."""
-    for a, b in zip(j._books, t._books):
-        assert (a.next_rowid, a.n_live, a.free) == (b.next_rowid, b.n_live, b.free)
-        np.testing.assert_array_equal(a.n_used, b.n_used)
-        np.testing.assert_array_equal(a.loc[: a.next_rowid], b.loc[: b.next_rowid])
-        np.testing.assert_array_equal(a.valid_h, b.valid_h)
-        np.testing.assert_array_equal(a.rowid_h[a.valid_h], b.rowid_h[b.valid_h])
+    """The JAX index's host books against the mirrors of the port's shards
+    (each an IvfIndex); rowids are compared at live slots (a loaded index
+    forgets the rowid of a tombstoned slot, in both packages)."""
+    for a, b in zip(j._books, t.shards):
+        assert (a.next_rowid, a.n_live, a.free) == (b._next_rowid, b._n_live, b._free)
+        np.testing.assert_array_equal(a.n_used, b._n_used)
+        np.testing.assert_array_equal(a.loc[: a.next_rowid], b._loc[: b._next_rowid])
+        np.testing.assert_array_equal(a.valid_h, b._valid_h)
+        np.testing.assert_array_equal(a.rowid_h[a.valid_h], b._rowid_h[b._valid_h])
+
+
+def _coarse_lags(t):
+    """Per shard of the port: whether its derived coarse bank lags its bank
+    (stale whole, or with written clusters to repack before the next
+    two-stage search)."""
+    return [sh._coarse_stale or bool(sh._coarse_dirty) for sh in t.shards]
 
 
 def _queries(x, n, seed):
@@ -189,7 +197,7 @@ def test_single_row_adds_balance_like_jax():
     for _ in range(17):
         row = rng.normal(size=(1, d)).astype(np.float32)
         np.testing.assert_array_equal(j.add(row), t.add(row))
-    sizes = [b.n_live for b in t._books]
+    sizes = [sh._n_live for sh in t.shards]
     assert sizes == [b.n_live for b in j._books]
     assert max(sizes) - min(sizes) <= 1 and t.count() == 17
     q = rng.normal(size=(2, d)).astype(np.float32)
@@ -215,7 +223,7 @@ def test_bucket_growth_keeps_one_geometry_and_the_gids():
     np.testing.assert_array_equal(t.add(copies), j.add(copies))
     assert t.bucket == j.bucket and t.bucket >= 2 * b0
     assert all(s.vectors.shape[:2] == (t.n_clusters, t.bucket) for s in t.states)
-    assert all(b.valid_h.shape == (t.n_clusters, t.bucket) for b in t._books)
+    assert all(sh._valid_h.shape == (t.n_clusters, t.bucket) for sh in t.shards)
     assert j.count() == t.count() == len(x) + len(copies)
     rows = np.arange(100, 132)
     _, ids = t.search(x[rows], 1)
@@ -249,10 +257,12 @@ def test_remove_drops_the_same_gids_as_jax(built):
     j, t, x, gids, live = built
     assert j.count() == t.count() == int(live.sum())
     assert (j.n_clusters, j._clustered_at) == (t.n_clusters, t._clustered_at)
-    for a, b in zip(j._books, t._books):
-        assert (a.next_rowid, a.n_live) == (b.next_rowid, b.n_live)
+    for a, b in zip(j._books, t.shards):
+        assert (a.next_rowid, a.n_live) == (b._next_rowid, b._n_live)
         # the same rowids are gone, wherever each package's k-means put them
-        np.testing.assert_array_equal(a.loc[: a.next_rowid, 0] >= 0, b.loc[: b.next_rowid, 0] >= 0)
+        np.testing.assert_array_equal(
+            a.loc[: a.next_rowid, 0] >= 0, b._loc[: b._next_rowid, 0] >= 0
+        )
     _, ids = t.search(x[:64], 5)
     assert not set(ids.reshape(-1).tolist()) & set(gids[::9].tolist())
 
@@ -319,7 +329,7 @@ def test_two_stage_recall_and_staleness():
     gids = t.add(x)
     np.testing.assert_array_equal(gids, j.add(x))
     np.testing.assert_array_equal(gids, base.add(x))
-    assert t.coarse and t._clustered and t._coarse_stale
+    assert t.coarse and t._clustered and all(_coarse_lags(t))
     q = _queries(x, 64, seed=10)
     want = _oracle(x, np.ones(len(x), bool), q, "cosine", 10)
     rj = _recall(j.search(q, 10)[1], want)
@@ -328,9 +338,9 @@ def test_two_stage_recall_and_staleness():
     assert rt >= 0.85 and rj >= 0.85 and abs(rj - rt) <= 0.03, (rj, rt)
     assert rt >= rb - 0.10
     # any write makes every shard's derived bank stale
-    assert not t._coarse_stale and len(t._coarse_banks) == S
+    assert not any(_coarse_lags(t)) and sum(sh._coarse_bank is not None for sh in t.shards) == S
     new = t.add(x[:8] + 0.001)
-    assert t._coarse_stale
+    assert all(_coarse_lags(t))
     _, ids = t.search(x[0] + 0.001, 1)
     assert ids[0] in (new[0], gids[0])
     t.remove(gids[:32])

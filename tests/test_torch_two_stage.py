@@ -96,7 +96,7 @@ def test_search_two_stage_matches_jax(space, probes):
         )
     )
     ts = tivf.state_from_numpy(st, "cpu")
-    tc = tivf._from_numpy(coarse, "cpu")
+    tc = tivf.from_numpy(coarse, "cpu")
     tq = torch.from_numpy(q)
     pd, pr = (t.numpy() for t in tivf.search_two_stage(ts, tc, tq, space, 10, probes, cand))
     assert np.isfinite(jd).all() and np.isfinite(pd).all()
@@ -180,7 +180,7 @@ def test_coarse_cache_tracks_mutations():
     assert idx._coarse_stale and idx._coarse_bank is None
     assert torch.equal(idx._refresh_coarse_locked(), fresh())
 
-    idx._grow_bucket()  # bank shape changed
+    idx.grow_bucket()  # bank shape changed
     assert idx._coarse_stale and idx._coarse_bank is None
     assert tuple(idx._refresh_coarse_locked().shape) == (
         idx.n_clusters, idx.state.bucket, D // 2

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .distance import gathered, pairwise
-from .ivf import _from_numpy
+from .ivf import from_numpy
 from .quantize import quantize_rows
 from .topk import INF, SENTINEL, topk_ascending, topk_ascending_stable
 
@@ -175,7 +175,7 @@ def grow(state: GraphState, new_capacity: int) -> GraphState:
 def state_from_numpy(src, device) -> GraphState:
     """A state from any object with the GraphState fields as arrays (e.g. a
     JAX GraphState read out with np.asarray); bf16 arrays keep their bits."""
-    return GraphState(**{f: _from_numpy(getattr(src, f), device) for f in _FIELDS})
+    return GraphState(**{f: from_numpy(getattr(src, f), device) for f in _FIELDS})
 
 
 def state_to_numpy(state: GraphState) -> dict[str, np.ndarray]:

@@ -31,6 +31,7 @@ from ..utils import metrics
 from . import build, bruteforce, cluster, graph, search
 from .distance import preprocess
 from .graph import GraphConfig, GraphState
+from .topk import as_batch, host_answer
 
 # Insert block: adds go in blocks of this many rows; the last partial block
 # is padded with dead lanes.
@@ -60,6 +61,18 @@ def config_from_params(params: IndexParams, capacity: int = 1 << 16) -> GraphCon
         routing_sample=routing_sample_for(capacity),
         entry_points=16,
     )
+
+
+def search_state(
+    state: GraphState, q: torch.Tensor, cfg: GraphConfig, k: int, exact: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Enqueue the search of one query batch on one graph state: the beam
+    search, or with `exact` the scan of every live row."""
+    if exact:
+        qp = preprocess(q, cfg.space).to(cfg.compute_dtype)
+        scales = state.scales if cfg.quantized else None
+        return bruteforce.search(qp, state.vectors, state.valid, cfg.space, k, scales=scales)
+    return search.search_impl(state, q, cfg, k)
 
 
 class SlotIndex:
@@ -151,12 +164,8 @@ class SlotIndex:
 
     def add(self, vectors: np.ndarray) -> np.ndarray:
         """Insert vectors; returns their slots [n]."""
-        vectors = np.asarray(vectors, dtype=np.float32)
-        if vectors.ndim == 1:
-            vectors = vectors[None, :]
+        vectors, _ = as_batch(vectors, self.cfg.dims)
         n, d = vectors.shape
-        if d != self.cfg.dims:
-            raise ValueError(f"dimension mismatch: index {self.cfg.dims}, got {d}")
         with self._lock:
             self._ensure_capacity(n)
             base = int(self._state.frontier)
@@ -286,38 +295,11 @@ class SlotIndex:
         the results are fresh tensors, so several batches can be in flight
         (MicroBatcher pipeline depth)."""
         exact = self._exact if exact is None else exact
-        queries = np.asarray(queries, dtype=np.float32)
-        single = queries.ndim == 1
-        if single:
-            queries = queries[None, :]
-        n, d = queries.shape
-        if d != self.cfg.dims:
-            raise ValueError(f"dimension mismatch: index {self.cfg.dims}, got {d}")
+        queries, single = as_batch(queries, self.cfg.dims)
         with self._lock, metrics.span("index.search_dispatch", series=False):
-            state = self._state
             q = torch.as_tensor(queries, device=self.device)
-            if exact:
-                qp = preprocess(q, self.cfg.space).to(self.cfg.compute_dtype)
-                dist, ids = bruteforce.search(
-                    qp,
-                    state.vectors,
-                    state.valid,
-                    self.cfg.space,
-                    k,
-                    scales=state.scales if self.cfg.quantized else None,
-                )
-            else:
-                dist, ids = search.search_impl(state, q, self.cfg, k)
-
-        def fetch() -> tuple[np.ndarray, np.ndarray]:
-            dist_h = dist.cpu().numpy()
-            ids_h = ids.cpu().numpy().astype(np.int64)
-            ids_h[~np.isfinite(dist_h)] = -1
-            if single:
-                return dist_h[0], ids_h[0]
-            return dist_h, ids_h
-
-        return fetch
+            dist, ids = search_state(self._state, q, self.cfg, k, exact)
+        return lambda: host_answer(dist, ids, single)
 
     def search(
         self, queries: np.ndarray, k: int, exact: bool | None = None

@@ -50,7 +50,7 @@ from .ivf_cuda import (
     search_clustered_pool,
 )
 from .quantize import pack_int4_from_int8, quantize_rows
-from .topk import INF, SENTINEL, topk_ascending
+from .topk import INF, SENTINEL, as_batch, host_answer, topk_ascending
 
 # Rows accumulated (sequential buckets) before the first clustering.
 CLUSTER_MIN_ROWS = 1 << 16
@@ -127,6 +127,12 @@ def bucket_for(rows: int, k: int) -> int:
     return max(int(np.ceil(1.5 * rows / k / 128)) * 128, 128)
 
 
+def widen_bucket(b: int) -> int:
+    """The next bucket width a recluster tries when its rows do not place:
+    1.5x, still 128-aligned."""
+    return -(-int(b * 1.5) // 128) * 128
+
+
 def _storage_dtype(dtype: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[
         dtype
@@ -162,17 +168,19 @@ def grow_bucket(s: IvfState) -> IvfState:
     )
 
 
-def _from_numpy(a, device) -> torch.Tensor:
+def from_numpy(a, device) -> torch.Tensor:
+    """A host array on `device`, copied (JAX read-outs are read-only); an
+    ml_dtypes bf16 array stays bf16."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16, as JAX reads out
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)  # copy: JAX read-outs are read-only
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def state_from_numpy(src, device) -> IvfState:
     """A state from any object with the five IvfState fields as arrays
     (e.g. a JAX IvfState read out with np.asarray)."""
-    return IvfState(**{f: _from_numpy(getattr(src, f), device) for f in _FIELDS})
+    return IvfState(**{f: from_numpy(getattr(src, f), device) for f in _FIELDS})
 
 
 def state_to_numpy(state: IvfState) -> dict[str, np.ndarray]:
@@ -521,7 +529,12 @@ class IvfIndex:
     """Host wrapper: numpy in, numpy out, state on `device`.
 
     Ids are monotonic rowids, stable across bucket growth, reclustering
-    and compaction (the engine keymap never needs a remap event)."""
+    and compaction (the engine keymap never needs a remap event).
+
+    `add`, `compact` and `search_dispatch` are the policy loops of one
+    device: when to grow, cap the growth, recluster or take which scan.
+    The steps they drive are public, so that shard/sharded_ivf.py can
+    drive the same steps on S such indexes under one (K, B) geometry."""
 
     def __init__(
         self,
@@ -585,63 +598,17 @@ class IvfIndex:
     def n_clusters(self) -> int:
         return self._state.n_clusters
 
+    @property
+    def clustered(self) -> bool:
+        return self._clustered
+
     # -- helpers ------------------------------------------------------------
 
     def _idx(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
 
-    def _grow_loc(self, n: int) -> None:
-        if self._next_rowid + n > len(self._loc):
-            new_len = max(2 * len(self._loc), self._next_rowid + n, 1024)
-            pad = np.full((new_len - len(self._loc), 2), -1, dtype=np.int64)
-            self._loc = np.concatenate([self._loc, pad])
-
-    def _grow_bucket(self) -> None:
-        """Double B -- realloc event, ids unaffected."""
-        s = self._state
-        with metrics.span("vst_ivf_grow_bucket_seconds"):
-            self._state = grow_bucket(s)
-        B = s.bucket
-        self._valid_h = np.pad(self._valid_h, ((0, 0), (0, B)))
-        self._rowid_h = np.pad(self._rowid_h, ((0, 0), (0, B)), constant_values=-1)
-        self._coarse_stale = True  # bank shape changed; re-derive
-        self._coarse_bank = None
-
-    # -- mutation -----------------------------------------------------------
-
-    def add(self, vectors) -> np.ndarray:
-        vectors = np.asarray(vectors, dtype=np.float32)
-        if vectors.ndim == 1:
-            vectors = vectors[None, :]
-        n, d = vectors.shape
-        if d != self.dims:
-            raise ValueError(f"dimension mismatch: index {self.dims}, got {d}")
-        with self._lock:
-            self._grow_loc(n)
-            rowids = np.arange(self._next_rowid, self._next_rowid + n, dtype=np.int64)
-            self._next_rowid += n
-            for off in range(0, n, ADD_CHUNK):
-                blk = vectors[off : off + ADD_CHUNK]
-                rid = rowids[off : off + ADD_CHUNK]
-                with metrics.span("vst_ivf_place_seconds"):
-                    if self._clustered:
-                        self._add_clustered(blk, rid)
-                    else:
-                        self._add_staging(blk, rid)
-            self._n_live += n
-            self._maybe_recluster()
-        return rowids
-
-    def _to_dev(self, blk: np.ndarray) -> torch.Tensor:
-        """One host->device copy per block.  bf16 and int8 banks round the
-        block to bf16 first, as the JAX package ships it (ivf.py:885-895),
-        so `place` normalises and quantizes the same values."""
-        t = torch.as_tensor(blk, dtype=torch.float32, device=self.device)
-        if self.dtype != "float32":
-            t = t.to(torch.bfloat16)
-        return t
-
     def _scatter(self, blk: torch.Tensor, ks, poss, rid) -> None:
+        """Write placed rows to the bank and the mirrors; they are live."""
         place(
             self._state,
             blk,
@@ -655,6 +622,7 @@ class IvfIndex:
         self._rowid_h[ks, poss] = rid
         self._loc[rid, 0] = ks
         self._loc[rid, 1] = poss
+        self._n_live += len(rid)
         self._mark_coarse_dirty(ks)
 
     def _mark_coarse_dirty(self, ks: np.ndarray) -> None:
@@ -665,16 +633,49 @@ class IvfIndex:
         if not self._coarse_stale:
             self._coarse_dirty.update(int(c) for c in np.unique(ks))
 
-    def _add_staging(self, blk, rid: np.ndarray) -> None:
+    # -- steps of an add ------------------------------------------------------
+    # Callers hold the index lock (the sharded coordinator holds its own).
+
+    def take_rowids(self, n: int) -> np.ndarray:
+        """The next `n` rowids, reserved for the rows about to be placed."""
+        if self._next_rowid + n > len(self._loc):
+            new_len = max(2 * len(self._loc), self._next_rowid + n, 1024)
+            pad = np.full((new_len - len(self._loc), 2), -1, dtype=np.int64)
+            self._loc = np.concatenate([self._loc, pad])
+        rowids = np.arange(self._next_rowid, self._next_rowid + n, dtype=np.int64)
+        self._next_rowid += n
+        return rowids
+
+    def to_device(self, blk: np.ndarray) -> torch.Tensor:
+        """One host->device copy per block.  bf16 and int8 banks round the
+        block to bf16 first, as the JAX package ships it (ivf.py:885-895),
+        so `place` normalises and quantizes the same values."""
+        t = torch.as_tensor(blk, dtype=torch.float32, device=self.device)
+        if self.dtype != "float32":
+            t = t.to(torch.bfloat16)
+        return t
+
+    def grow_bucket(self) -> None:
+        """Double B -- realloc event, ids unaffected."""
+        s = self._state
+        with metrics.span("vst_ivf_grow_bucket_seconds"):
+            self._state = grow_bucket(s)
+        B = s.bucket
+        self._valid_h = np.pad(self._valid_h, ((0, 0), (0, B)))
+        self._rowid_h = np.pad(self._rowid_h, ((0, 0), (0, B)), constant_values=-1)
+        self._coarse_stale = True  # bank shape changed; re-derive
+        self._coarse_bank = None
+
+    def staging_fits(self, m: int) -> bool:
+        """Whether `m` more rows fit the staging bank at its bucket width."""
+        return int(self._n_used.sum()) + m <= self._state.n_clusters * self._state.bucket
+
+    def place_staging(self, blk: torch.Tensor, rid: np.ndarray) -> None:
         """Sequential fill before the first clustering, by per-cluster fill
-        counts (rows placed before a _grow_bucket keep their slots)."""
-        blk = self._to_dev(blk)
+        counts (rows placed before a grow_bucket keep their slots); the
+        rows must fit (`staging_fits`)."""
         m = len(blk)
-        K, B = self._state.n_clusters, self._state.bucket
-        while int(self._n_used.sum()) + m > K * B:
-            self._grow_bucket()
-            B = self._state.bucket
-        rem = B - self._n_used  # free tail slots per cluster, in order
+        rem = self._state.bucket - self._n_used  # free tail slots per cluster, in order
         cum = np.cumsum(rem)
         j = np.arange(m)
         ks = np.searchsorted(cum, j, side="right")
@@ -682,6 +683,51 @@ class IvfIndex:
         poss = self._n_used[ks] + (j - prev)
         np.add.at(self._n_used, ks, 1)
         self._scatter(blk, ks, poss, rid)
+
+    def assign(self, blk: torch.Tensor) -> torch.Tensor:
+        """Enqueue the top-SPILL cluster choices [m, SPILL] of a block."""
+        prep = preprocess(blk.float(), self.space).to(self._state.centroids.dtype)
+        return assign_top(self._state.centroids, prep, self.space, SPILL)
+
+    def plan_clustered(self, cids: np.ndarray) -> tuple:
+        """A trial placement of rows with cluster choices `cids` at the
+        current bucket width, the mirrors untouched: (used, free, ks, poss,
+        unplaced)."""
+        used = self._n_used.copy()
+        free_try = {k: v[:] for k, v in self._free.items()}
+        ks, poss, unplaced = plan_placement(cids, used, self._state.bucket, free=free_try)
+        return used, free_try, ks, poss, unplaced
+
+    def place_clustered(self, blk: torch.Tensor, cids: np.ndarray, plan: tuple, rid) -> None:
+        """Commit a plan of `plan_clustered` whose rows all found a slot."""
+        used, free_try, ks, poss, _ = plan
+        self._n_used = used
+        self._free = free_try
+        spilled = ks != cids[:, 0]
+        if spilled.any():
+            self._dirty.update(int(c) for c in np.unique(ks[spilled]))
+        self._scatter(blk, ks, poss, rid)
+
+    # -- mutation -----------------------------------------------------------
+
+    def add(self, vectors) -> np.ndarray:
+        vectors, _ = as_batch(vectors, self.dims)
+        n = len(vectors)
+        with self._lock:
+            rowids = self.take_rowids(n)
+            for off in range(0, n, ADD_CHUNK):
+                rid = rowids[off : off + ADD_CHUNK]
+                with metrics.span("vst_ivf_place_seconds"):
+                    # one copy, shared by assign and place
+                    blk = self.to_device(vectors[off : off + ADD_CHUNK])
+                    if self._clustered:
+                        self._add_clustered(blk, rid)
+                    else:
+                        while not self.staging_fits(len(blk)):
+                            self.grow_bucket()
+                        self.place_staging(blk, rid)
+            self._maybe_recluster()
+        return rowids
 
     @staticmethod
     def _place_overflow(ks, poss, unplaced, used, bucket) -> bool:
@@ -703,16 +749,11 @@ class IvfIndex:
         np.add.at(used, target, 1)
         return True
 
-    def _add_clustered(self, blk, rid: np.ndarray) -> None:
-        blk = self._to_dev(blk)  # one copy, shared by assign and place
-        prep = preprocess(blk.float(), self.space).to(self._state.centroids.dtype)
-        cids = assign_top(self._state.centroids, prep, self.space, SPILL).cpu().numpy()
+    def _add_clustered(self, blk: torch.Tensor, rid: np.ndarray) -> None:
+        cids = self.assign(blk).cpu().numpy()
         while True:
-            used = self._n_used.copy()
-            free_try = {k: v[:] for k, v in self._free.items()}
-            ks, poss, unplaced = plan_placement(
-                cids, used, self._state.bucket, free=free_try
-            )
+            plan = self.plan_clustered(cids)
+            used, _, ks, poss, unplaced = plan
             if not unplaced.any():
                 break
             K, B, D = self._state.vectors.shape
@@ -721,15 +762,10 @@ class IvfIndex:
                 ks, poss, unplaced, used, B
             ):
                 # growth-capped: overflow went to the emptiest clusters;
-                # `spilled` below marks them dirty for the incremental compact
+                # place_clustered marks them dirty for the incremental compact
                 break
-            self._grow_bucket()
-        self._n_used = used
-        self._free = free_try
-        spilled = ks != cids[:, 0]
-        if spilled.any():
-            self._dirty.update(int(c) for c in np.unique(ks[spilled]))
-        self._scatter(blk, ks, poss, rid)
+            self.grow_bucket()
+        self.place_clustered(blk, cids, plan, rid)
 
     def remove(self, rowids) -> None:
         rowids = np.unique(np.asarray(rowids, dtype=np.int64).reshape(-1))
@@ -807,10 +843,8 @@ class IvfIndex:
         # first choice only; plan before freeing the movers' own slots, so
         # a new slot never aliases a mover's source and the chunked
         # gather + place below reads the bank safely while it changes
-        flat_mv, first_mv = flat[move], cids[move, :1]
-        used = self._n_used.copy()
-        free_try = {k: v[:] for k, v in self._free.items()}
-        ks, poss, unplaced = plan_placement(first_mv, used, B, free=free_try)
+        flat_mv = flat[move]
+        used, free_try, ks, poss, unplaced = self.plan_clustered(cids[move, :1])
         if unplaced.any():
             self._dirty.update(int(c) for c in np.unique(flat_mv[unplaced] // B))
         placed = ~unplaced
@@ -846,46 +880,66 @@ class IvfIndex:
     def _recluster_into_new_bank(self) -> str:
         """k-means over the live rows, each row placed anew; returns the
         path of the bank's permutation, "host" or "device"."""
-        s = self._state
-        flat_live = np.flatnonzero(self._valid_h.reshape(-1))
+        flat_live = self.live_slots()
         n = len(flat_live)
         if n == 0:
             return "device"
         k_new = k_for(max(n, self._reserve), self.rows_per_bucket)
+        centroids, cids = self.kmeans(flat_live, k_new)
+        cids = cids.cpu().numpy()
+        b_new = bucket_for(max(n, self._reserve), k_new)
+        while (plan := self.plan_recluster(cids, k_new, b_new)) is None:
+            b_new = widen_bucket(b_new)
+        return self.apply_recluster(centroids, flat_live, cids, plan)
+
+    # -- steps of a recluster ------------------------------------------------
+
+    def live_slots(self) -> np.ndarray:
+        """Flat bank slots (cluster * B + position) of the live rows."""
+        return np.flatnonzero(self._valid_h.reshape(-1))
+
+    def kmeans(self, flat_live: np.ndarray, k_new: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Enqueue k-means at `k_new` clusters over the live rows (a strided
+        live sample seeds it, Lloyd iterations refine it) and every live
+        row's top-SPILL choices among the result: (centroids, cids [n,
+        SPILL] on the device).  Without live rows the centroids repeat slot
+        0 and there are no choices."""
+        s = self._state
+        n = len(flat_live)
         cdt = s.centroids.dtype
         a_chunk = ASSIGN_CHUNK if k_new <= (1 << 15) else 1024
-
-        # k-means: strided live sample init + Lloyd iterations
-        stride = max(n // k_new, 1)
-        centroids = _gather_dequant(
-            s.vectors, s.scales, self._idx(flat_live[::stride][:k_new])
-        ).to(cdt)
+        seeds = flat_live[:: max(n // k_new, 1)][:k_new] if n else np.zeros((1,), np.int64)
+        centroids = _gather_dequant(s.vectors, s.scales, self._idx(seeds)).to(cdt)
         if centroids.shape[0] < k_new:  # degenerate case: repeat
             reps = -(-k_new // centroids.shape[0])
             centroids = centroids.repeat(reps, 1)[:k_new]
+        if n == 0:
+            return centroids, torch.empty((0, SPILL), dtype=torch.int32)
         sample_n = min(n, LLOYD_SAMPLE)
-        s_stride = max(n // sample_n, 1)
-        sample = self._idx(flat_live[::s_stride][:sample_n])
+        sample = self._idx(flat_live[:: max(n // sample_n, 1)][:sample_n])
         for _ in range(LLOYD_ITERS):
             centroids = _lloyd_iter(s.vectors, s.scales, centroids, sample, self.space, a_chunk)
-
-        # assign every live row (top-SPILL for the placement cascade)
-        all_cids = (
-            _assign_pass(
-                s.vectors, s.scales, centroids, self._idx(flat_live), self.space, SPILL, a_chunk
-            )
-            .cpu()
-            .numpy()
+        cids = _assign_pass(
+            s.vectors, s.scales, centroids, self._idx(flat_live), self.space, SPILL, a_chunk
         )
+        return centroids, cids
 
-        # host placement into fresh buckets, then the device permute
-        b_new = bucket_for(max(n, self._reserve), k_new)
-        while True:
-            used = np.zeros((k_new,), dtype=np.int64)
-            ks, poss, unplaced = plan_placement(all_cids, used, b_new)
-            if not unplaced.any():
-                break
-            b_new = -(-int(b_new * 1.5) // 128) * 128  # stay 128-aligned
+    def plan_recluster(self, cids: np.ndarray, k_new: int, b_new: int) -> tuple | None:
+        """The live rows' placement into a fresh (k_new, b_new) bank: (b_new,
+        used, ks, poss), or None where a row finds no slot at that width."""
+        used = np.zeros((k_new,), dtype=np.int64)
+        ks, poss, unplaced = plan_placement(cids, used, b_new)
+        return None if unplaced.any() else (b_new, used, ks, poss)
+
+    def apply_recluster(
+        self, centroids: torch.Tensor, flat_live: np.ndarray, cids: np.ndarray, plan: tuple
+    ) -> str:
+        """Permute the bank into the new one of `plan` (`plan_recluster`)
+        and move the mirrors with it; returns the permutation's path,
+        "host" or "device" (the rule at HOST_PERMUTE_BYTES)."""
+        b_new, used, ks, poss = plan
+        k_new = len(used)
+        s = self._state
         perm = np.full((k_new, b_new), SENTINEL, dtype=np.int64)
         perm[ks, poss] = flat_live
         rowid_flat = self._rowid_h.reshape(-1)
@@ -915,7 +969,7 @@ class IvfIndex:
         self._loc[placed_rowids, 1] = poss
         self._free = {}  # every tombstone was just dropped
         # rows the recluster itself had to spill stay on the incremental list
-        spilled = ks != all_cids[:, 0]
+        spilled = ks != cids[:, 0]
         self._dirty = {int(c) for c in np.unique(ks[spilled])}
         self._clustered = True
         self._clustered_at = self._n_live
@@ -944,31 +998,23 @@ class IvfIndex:
                 update_coarse(self._coarse_bank, self._state.vectors, self._idx(ks))
         return self._coarse_bank
 
-    def search_dispatch(self, queries, k: int, probes: int | None = None):
-        """Enqueue a batched query; returns fetch() -> (dist, rowids).
-
-        The device work is enqueued under the index lock on the current
-        stream; fetch() does the host readback and may run outside the
-        lock.  A later in-place update is enqueued after these kernels on
-        the same stream, and the results are fresh tensors, so several
-        batches can be in flight (MicroBatcher pipeline depth)."""
-        probes = probes or self.probes
-        queries = np.asarray(queries, dtype=np.float32)
-        single = queries.ndim == 1
-        if single:
-            queries = queries[None, :]
-        n, d = queries.shape
-        if d != self.dims:
-            raise ValueError(f"dimension mismatch: index {self.dims}, got {d}")
+    def enqueue_search(
+        self, queries: np.ndarray, k: int, probes: int, flat: bool = False
+    ) -> tuple[list, list]:
+        """Under the index lock, enqueue the search of a [n, D] f32 batch,
+        QCHUNK queries at a time: per chunk (dist, rowid) device tensors.
+        The scan: the full-bank one when `flat` or before the first
+        clustering, else the two-stage scan when `coarse`, else `scan_path`'s
+        kernel."""
         outs_d, outs_i = [], []
         with self._lock, metrics.span("index.search_dispatch", series=False):
             state = self._state
-            clustered = self._clustered
+            clustered = self._clustered and not flat
             masks = scan_masks(state) if clustered else None
             two_stage = clustered and self.coarse
             coarse_bank = self._refresh_coarse_locked() if two_stage else None
             path = scan_path(k, state.dims)
-            for off in range(0, n, QCHUNK):
+            for off in range(0, len(queries), QCHUNK):
                 q = torch.as_tensor(queries[off : off + QCHUNK], device=self.device)
                 if two_stage:
                     cand = min(
@@ -990,16 +1036,19 @@ class IvfIndex:
                     )
                 outs_d.append(dd)
                 outs_i.append(ii)
+        return outs_d, outs_i
 
-        def fetch() -> tuple[np.ndarray, np.ndarray]:
-            dist = torch.cat(outs_d).cpu().numpy()
-            ids = torch.cat(outs_i).cpu().numpy().astype(np.int64)
-            ids[~np.isfinite(dist)] = -1
-            if single:
-                return dist[0], ids[0]
-            return dist, ids
+    def search_dispatch(self, queries, k: int, probes: int | None = None):
+        """Enqueue a batched query; returns fetch() -> (dist, rowids).
 
-        return fetch
+        The device work is enqueued under the index lock on the current
+        stream; fetch() does the host readback and may run outside the
+        lock.  A later in-place update is enqueued after these kernels on
+        the same stream, and the results are fresh tensors, so several
+        batches can be in flight (MicroBatcher pipeline depth)."""
+        queries, single = as_batch(queries, self.dims)
+        outs_d, outs_i = self.enqueue_search(queries, k, probes or self.probes)
+        return lambda: host_answer(outs_d, outs_i, single)
 
     def search(
         self, queries, k: int, probes: int | None = None
@@ -1009,105 +1058,102 @@ class IvfIndex:
 
     def exact_search(self, queries, k: int) -> tuple[np.ndarray, np.ndarray]:
         """Exact scan over the same bank (the recall oracle)."""
-        queries = np.asarray(queries, dtype=np.float32)
-        single = queries.ndim == 1
-        if single:
-            queries = queries[None, :]
-        with self._lock:
-            d, i = search_flat(
-                self._state, torch.as_tensor(queries, device=self.device), self.space, k
-            )
-        d = d.cpu().numpy()
-        i = i.cpu().numpy().astype(np.int64)
-        i[~np.isfinite(d)] = -1
-        if single:
-            return d[0], i[0]
-        return d, i
+        queries, single = as_batch(queries, self.dims)
+        outs_d, outs_i = self.enqueue_search(queries, k, self.probes, flat=True)
+        return host_answer(outs_d, outs_i, single)
 
     # -- persistence ----------------------------------------------------------
 
+    def snapshot(self) -> tuple[dict, dict[str, np.ndarray]]:
+        """(meta, arrays) of the JAX package's npz snapshot (format 1, kind
+        "ivf"; ivf.py:1509-1551): bf16 vectors travel as f32, centroids as
+        f32.  The coarse bank is derived data and is not saved.  Callers
+        hold the index lock."""
+        meta = {
+            "format": 1,
+            "kind": "ivf",
+            "params": asdict(self.params),
+            "dtype": self.dtype,
+            "probes": self.probes,
+            "cluster_min": self.cluster_min,
+            "rows_per_bucket": self.rows_per_bucket,
+            "coarse": self.coarse,
+            "rescore": self.rescore,
+            "clustered": self._clustered,
+            "clustered_at": self._clustered_at,
+            "n_live": self._n_live,
+            "next_rowid": self._next_rowid,
+            "free": {str(c): v for c, v in self._free.items()},
+        }
+        # bf16 widens exactly to f32
+        return meta, {"n_used": self._n_used, **state_to_numpy(self._state)}
+
     def save(self, path: str) -> None:
-        """Snapshot the bucketed bank to one uncompressed npz, in the JAX
-        package's format (format 1, kind "ivf"; ivf.py:1509-1551): bf16
-        vectors travel as f32, centroids as f32.  The coarse bank is derived
-        data and is not saved."""
+        """Snapshot the bucketed bank to one uncompressed npz (`snapshot`)."""
         with self._lock:
-            meta = {
-                "format": 1,
-                "kind": "ivf",
-                "params": asdict(self.params),
-                "dtype": self.dtype,
-                "probes": self.probes,
-                "cluster_min": self.cluster_min,
-                "rows_per_bucket": self.rows_per_bucket,
-                "coarse": self.coarse,
-                "rescore": self.rescore,
-                "clustered": self._clustered,
-                "clustered_at": self._clustered_at,
-                "n_live": self._n_live,
-                "next_rowid": self._next_rowid,
-                "free": {str(c): v for c, v in self._free.items()},
-            }
-            arrays = state_to_numpy(self._state)  # bf16 widens exactly to f32
+            meta, arrays = self.snapshot()
             atomic_savez(
-                path,
-                n_used=self._n_used,
-                meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
-                **arrays,
+                path, meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **arrays
             )
 
     @classmethod
     def load(cls, path: str, device: str | torch.device = "cuda") -> "IvfIndex":
-        """An index from a snapshot written by `save` or by the JAX package;
-        the host mirrors are rebuilt from the bank (ivf.py:1579-1595)."""
+        """An index from a snapshot written by `save` or by the JAX package."""
         with np.load(path) as z:
             meta = json.loads(bytes(z["meta"]).decode())
             if meta.get("kind") != "ivf":
                 raise ValueError("not an ivf snapshot")
             if meta.get("format") != 1:
                 raise ValueError(f"unknown ivf snapshot format {meta.get('format')!r}")
-            idx = cls.__new__(cls)
-            idx.params = IndexParams(**meta["params"])
-            idx.space = idx.params.space
-            idx.dtype = meta["dtype"]
-            idx.dims = idx.params.dimensions
-            idx.probes = meta["probes"]
-            idx.device = torch.device(device)
-            idx.cluster_min = meta["cluster_min"]
-            idx.rows_per_bucket = meta.get("rows_per_bucket", ROWS_PER_BUCKET)
-            idx.coarse = (
-                meta.get("coarse", os.environ.get("VST_IVF_COARSE") == "1")
-                and idx.dtype == "int8"
-                and idx.dims % 2 == 0
-            )
-            idx.rescore = meta.get("rescore", 8)
-            idx._coarse_bank = None
-            idx._coarse_stale = True
-            idx._coarse_dirty = set()
-            idx._reserve = 0  # a load is not a bulk load
-            idx._clustered = meta["clustered"]
-            idx._clustered_at = meta["clustered_at"]
-            idx._n_live = meta["n_live"]
-            idx._next_rowid = meta["next_rowid"]
-            idx._free = {int(c): list(v) for c, v in meta["free"].items()}
-            idx._dirty = set()
-            idx._n_used = np.asarray(z["n_used"], dtype=np.int64)
-            valid = np.asarray(z["valid"])
-            rowid = np.asarray(z["rowid"])
-            idx._valid_h = valid.copy()
-            idx._rowid_h = np.where(valid, rowid.astype(np.int64), -1)
-            idx._loc = np.full((max(idx._next_rowid, 1), 2), -1, dtype=np.int64)
-            ks, poss = np.nonzero(valid)
-            live_ids = rowid[ks, poss].astype(np.int64)
-            idx._loc[live_ids, 0] = ks
-            idx._loc[live_ids, 1] = poss
-            idx._lock = threading.Lock()
-            dev = idx.device
-            idx._state = IvfState(
-                centroids=_from_numpy(z["centroids"], dev).to(_compute_dtype(idx.dtype)),
-                vectors=_from_numpy(z["vectors"], dev).to(_storage_dtype(idx.dtype)),
-                scales=_from_numpy(z["scales"], dev).float(),
-                valid=_from_numpy(valid, dev),
-                rowid=_from_numpy(rowid, dev).to(torch.int32),
-            )
+            return cls.restore(meta, z, device)
+
+    @classmethod
+    def restore(cls, meta: dict, arrays, device: str | torch.device) -> "IvfIndex":
+        """An index from a snapshot's meta and arrays (anything indexed by
+        field name); the host mirrors are rebuilt from the bank
+        (ivf.py:1579-1595)."""
+        idx = cls.__new__(cls)
+        idx.params = IndexParams(**meta["params"])
+        idx.space = idx.params.space
+        idx.dtype = meta["dtype"]
+        idx.dims = idx.params.dimensions
+        idx.probes = meta["probes"]
+        idx.device = torch.device(device)
+        idx.cluster_min = meta["cluster_min"]
+        idx.rows_per_bucket = meta.get("rows_per_bucket", ROWS_PER_BUCKET)
+        idx.coarse = (
+            meta.get("coarse", os.environ.get("VST_IVF_COARSE") == "1")
+            and idx.dtype == "int8"
+            and idx.dims % 2 == 0
+        )
+        idx.rescore = meta.get("rescore", 8)
+        idx._coarse_bank = None
+        idx._coarse_stale = True
+        idx._coarse_dirty = set()
+        idx._reserve = 0  # a load is not a bulk load
+        idx._clustered = meta["clustered"]
+        idx._clustered_at = meta["clustered_at"]
+        idx._n_live = meta["n_live"]
+        idx._next_rowid = meta["next_rowid"]
+        idx._free = {int(c): list(v) for c, v in meta["free"].items()}
+        idx._dirty = set()
+        idx._n_used = np.asarray(arrays["n_used"], dtype=np.int64)
+        valid = np.asarray(arrays["valid"])
+        rowid = np.asarray(arrays["rowid"])
+        idx._valid_h = valid.copy()
+        idx._rowid_h = np.where(valid, rowid.astype(np.int64), -1)
+        idx._loc = np.full((max(idx._next_rowid, 1), 2), -1, dtype=np.int64)
+        ks, poss = np.nonzero(valid)
+        live_ids = rowid[ks, poss].astype(np.int64)
+        idx._loc[live_ids, 0] = ks
+        idx._loc[live_ids, 1] = poss
+        idx._lock = threading.Lock()
+        dev = idx.device
+        idx._state = IvfState(
+            centroids=from_numpy(arrays["centroids"], dev).to(_compute_dtype(idx.dtype)),
+            vectors=from_numpy(arrays["vectors"], dev).to(_storage_dtype(idx.dtype)),
+            scales=from_numpy(arrays["scales"], dev).float(),
+            valid=from_numpy(valid, dev),
+            rowid=from_numpy(rowid, dev).to(torch.int32),
+        )
         return idx

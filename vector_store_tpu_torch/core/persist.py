@@ -61,7 +61,7 @@ def save(path: str, index: SlotIndex, keymap_blob: Optional[dict] = None) -> Non
         )
 
 
-def _config(meta_cfg: dict, **override) -> GraphConfig:
+def config_from_meta(meta_cfg: dict, **override) -> GraphConfig:
     """GraphConfig from a snapshot's cfg, without the fields this package
     does not have (`fused_gather`, a backend-local choice of the JAX
     package, not index data)."""
@@ -77,7 +77,7 @@ def load(path: str, device: str | torch.device = "cuda") -> tuple[SlotIndex, dic
         if meta["format"] != FORMAT_VERSION:
             raise ValueError(f"unsupported snapshot format {meta['format']}")
         params = IndexParams(**meta["params"])
-        cfg = _config(meta["cfg"])
+        cfg = config_from_meta(meta["cfg"])
         exact = meta.get("exact", False)
         # older snapshots predate the insert_block field: re-derive the
         # block size SlotIndex.__init__ would have chosen for the mode
@@ -94,7 +94,7 @@ def load(path: str, device: str | torch.device = "cuda") -> tuple[SlotIndex, dic
                 dev("route_cnt"),
             )
         else:  # pre-router snapshot: dummy tensors, flat routing
-            cfg = _config(meta["cfg"], route_k=0)
+            cfg = config_from_meta(meta["cfg"], route_k=0)
             router = graph.init_router(cfg, device)
         state = GraphState(
             vectors=dev("vectors", cfg.tdtype),

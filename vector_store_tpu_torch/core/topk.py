@@ -13,6 +13,7 @@ wherever distances tie.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INF = float("inf")
@@ -135,3 +136,32 @@ def rank_in_run(sorted_keys: torch.Tensor) -> torch.Tensor:
     is_start[1:] = sorted_keys[1:] != sorted_keys[:-1]
     run_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
     return (idx - run_start).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# the host side of every index's add and search_dispatch
+
+
+def as_batch(rows, dims: int) -> tuple[np.ndarray, bool]:
+    """A row or a batch of them (vectors to add, queries) as [n, dims] f32,
+    and whether it was one."""
+    rows = np.asarray(rows, dtype=np.float32)
+    single = rows.ndim == 1
+    if single:
+        rows = rows[None, :]
+    _, d = rows.shape
+    if d != dims:
+        raise ValueError(f"dimension mismatch: index {dims}, got {d}")
+    return rows, single
+
+
+def host_answer(dist, ids, single: bool) -> tuple[np.ndarray, np.ndarray]:
+    """A top-k read back to the host: (dist, ids int64), absent results
+    (inf, -1); a single query's row alone.  `dist` and `ids` are tensors,
+    or lists of per-chunk tensors, each joined just before its readback."""
+    dist_h = (torch.cat(dist) if isinstance(dist, list) else dist).cpu().numpy()
+    ids_h = (torch.cat(ids) if isinstance(ids, list) else ids).cpu().numpy().astype(np.int64)
+    ids_h[~np.isfinite(dist_h)] = -1
+    if single:
+        return dist_h[0], ids_h[0]
+    return dist_h, ids_h

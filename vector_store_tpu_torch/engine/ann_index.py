@@ -3,10 +3,10 @@ on a torch device.
 
 Counterpart of vector_store_tpu/engine/ann_index.py.  With `n_devices` > 1
 the index is document-sharded over a device list (shard/).  Queries go
-through a MicroBatcher
-that coalesces concurrent Ann requests into one device batch; consecutive
-AddOrReplace / Remove messages in the mailbox are applied as one batched
-insert/delete.
+through a MicroBatcher that coalesces concurrent Ann requests into one
+device batch, which every index, sharded or not, answers through
+`search_dispatch`; consecutive AddOrReplace / Remove messages in the
+mailbox are applied as one batched insert/delete.
 """
 
 from __future__ import annotations
@@ -87,8 +87,7 @@ class AnnIndexBackend:
         self.params = params
         # `device` may be a device list, which is then the mesh as given
         if n_devices > 1 and backend == "ivf":
-            # document-sharded IVF (the add/remove/search/count surface of
-            # the single-device IvfIndex)
+            # document-sharded IVF: IvfIndex shards under one coordinator
             from ..shard.sharded_ivf import ShardedIvfIndex
 
             self.index = ShardedIvfIndex(params, n_devices=n_devices, device=device)
@@ -141,11 +140,7 @@ class AnnIndexBackend:
             self._serve_lock.acquire()
         try:
             with metrics.span("vst_ann_batch_seconds", backend=type(self.index).__name__):
-                if hasattr(self.index, "search_dispatch"):
-                    fetch = self.index.search_dispatch(queries, k_max)
-                else:  # sharded backends search whole under the lock
-                    res = self.index.search(queries, k_max)
-                    fetch = lambda: res  # noqa: E731
+                fetch = self.index.search_dispatch(queries, k_max)
                 keymap = self.keymap
         finally:
             self._serve_lock.release()

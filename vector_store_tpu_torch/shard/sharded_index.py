@@ -13,7 +13,7 @@ round-robin deal gid also equals the global insertion order.
 
 Where the JAX package runs one `shard_map` step over stacked
 [S, C, ...] arrays, this module loops over a list of per-shard states and
-reuses the device steps of core/{build,search,bruteforce,cluster}.py; the
+reuses the device steps of core/{build,index,cluster}.py; the
 arrays are stacked only in a snapshot, which is the JAX package's format.
 Queries are not padded to fixed batch sizes; insert blocks keep their
 padding (core/index.py says why).
@@ -29,13 +29,18 @@ from dataclasses import asdict
 import numpy as np
 import torch
 
-from ..core import bruteforce, build, cluster, graph
-from ..core import search as search_mod
-from ..core.distance import preprocess
+from ..core import build, cluster, graph
 from ..core.graph import GraphState
-from ..core.index import INSERT_BLOCK, ROUTE_MIN_ROWS, config_from_params, routing_sample_for
-from ..core.ivf import _from_numpy
-from ..core.persist import _config
+from ..core.index import (
+    INSERT_BLOCK,
+    ROUTE_MIN_ROWS,
+    config_from_params,
+    routing_sample_for,
+    search_state,
+)
+from ..core.ivf import from_numpy
+from ..core.persist import config_from_meta
+from ..core.topk import as_batch, host_answer
 from ..types import IndexParams
 from ..utils.persistio import atomic_savez_compressed
 from .mesh import gid_merge, make_mesh
@@ -115,12 +120,8 @@ class ShardedSlotIndex:
 
     def add(self, vectors) -> np.ndarray:
         """Insert vectors round-robin across shards -> global ids [n]."""
-        vectors = np.asarray(vectors, dtype=np.float32)
-        if vectors.ndim == 1:
-            vectors = vectors[None, :]
+        vectors, _ = as_batch(vectors, self.cfg.dims)
         n, d = vectors.shape
-        if d != self.cfg.dims:
-            raise ValueError(f"dimension mismatch: index {self.cfg.dims}, got {d}")
         S = self.n_shards
         gids = np.empty((n,), dtype=np.int64)
         step = build.upload_impl if self._exact else build.insert_impl
@@ -208,38 +209,25 @@ class ShardedSlotIndex:
 
     # -- query ------------------------------------------------------------
 
-    def search(self, queries, k: int) -> tuple[np.ndarray, np.ndarray]:
-        """(dist[n, k] ascending, gids[n, k]); absent results (inf, -1)."""
-        queries = np.asarray(queries, dtype=np.float32)
-        single = queries.ndim == 1
-        if single:
-            queries = queries[None, :]
-        n, d = queries.shape
-        if d != self.cfg.dims:
-            raise ValueError(f"dimension mismatch: index {self.cfg.dims}, got {d}")
-        cfg = self.cfg
+    def search_dispatch(self, queries, k: int):
+        """Enqueue a batched query on every shard, then the merge on the
+        first shard's device; returns fetch() -> (dist, gids), the host
+        readback, which may run outside the lock: a later in-place update
+        of a shard is enqueued after that shard's search, and the results
+        are fresh tensors (SlotIndex.search_dispatch)."""
+        queries, single = as_batch(queries, self.cfg.dims)
         with self._lock:
             q_host = torch.from_numpy(queries)
-            parts = []
-            for st, dev in zip(self._states, self.mesh):  # enqueued on every shard
-                q = q_host.to(dev, non_blocking=True)
-                if self._exact:
-                    qp = preprocess(q, cfg.space).to(cfg.compute_dtype)
-                    parts.append(
-                        bruteforce.search(
-                            qp, st.vectors, st.valid, cfg.space, k,
-                            scales=st.scales if cfg.quantized else None,
-                        )
-                    )
-                else:
-                    parts.append(search_mod.search_impl(st, q, cfg, k))
+            parts = [  # enqueued on every shard
+                search_state(st, q_host.to(dev, non_blocking=True), self.cfg, k, self._exact)
+                for st, dev in zip(self._states, self.mesh)
+            ]
             dist, ids = gid_merge(parts, k, capacity=self.capacity)
-            dist = dist.cpu().numpy()
-            ids = ids.cpu().numpy().astype(np.int64)
-        ids[~np.isfinite(dist)] = -1
-        if single:
-            return dist[0], ids[0]
-        return dist, ids
+        return lambda: host_answer(dist, ids, single)
+
+    def search(self, queries, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """(dist[n, k] ascending, gids[n, k]); absent results (inf, -1)."""
+        return self.search_dispatch(queries, k)()
 
     # -- maintenance --------------------------------------------------------
 
@@ -336,7 +324,7 @@ class ShardedSlotIndex:
             meta = json.loads(bytes(z["meta"]).decode())
             if not meta.get("sharded"):
                 raise ValueError("not a sharded snapshot (use core.persist.load)")
-            cfg = _config(meta["cfg"])  # without the JAX package's fused_gather
+            cfg = config_from_meta(meta["cfg"])  # without the JAX package's fused_gather
             idx = cls.__new__(cls)
             idx.params = IndexParams(**meta["params"])
             idx.mesh = make_mesh(n_devices or meta["n_shards"], mesh or device)
@@ -357,7 +345,7 @@ class ShardedSlotIndex:
             stacked = {f: z[f] for f in graph._FIELDS}
 
             def put(f: str, s: int, dev) -> torch.Tensor:
-                t = _from_numpy(stacked[f][s], dev)
+                t = from_numpy(stacked[f][s], dev)
                 return t.to(dtypes[f]) if f in dtypes else t
 
             idx._states = [
